@@ -1,0 +1,339 @@
+"""IMCRA noise-PSD estimation: a frame loop in PyTorch, and a CUDA kernel.
+
+Counterpart of `nelegan_tpu/dsp/imcra.py`, whose whole recursion runs as one
+`lax.scan` (imcra.py:206-228).  Eager PyTorch has no such scan: the plain
+version below is a Python loop over frames of dozens of small tensor ops,
+which is the reference the kernel is held against and the path the CPU takes.
+On a CUDA tensor `imcra_scan` launches `csrc/imcra.cu`, which runs the frame
+loop inside one block per utterance.
+
+Quirks of the reference recursion that both versions keep (reference:
+noise_est/imcra.py, as listed at nelegan_tpu/dsp/imcra.py:13-23):
+
+  * frame 0 initialises the smoothed buffers from itself and is then *also*
+    processed by the warm-up branch;
+  * during the IS warm-up frames only `lam` is smoothed; `ov_lam` keeps its
+    frame-0 value until the main branch first runs;
+  * the PSD emitted for frame l is `lam` *after* the update;
+  * minimum tracking fires every V-th main-branch frame: the sub-window
+    minimum is written to slot u while u < U, otherwise the U slots roll and
+    the last is written, then the minimum is taken over min(u+1, U) slots;
+  * the q == 1 guard of the speech-presence probability and the norm > 0
+    guard of the second smoothing;
+  * powers are promoted to at least float32.
+
+Every scalar coefficient is rounded to the working dtype exactly as the
+reference package rounds it (`_coefficients`), so the kernel and the plain
+version do the same float32 operations in the same order.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from nelegan_tpu_torch import kernels
+from nelegan_tpu_torch.config import ImcraConfig
+
+_TINY = 1e-30
+# Rows of the packed kernel state [B, N_STATE, K]: ten per-bin quantities,
+# then the two U-slot minimum stores.
+_FIELDS = ("s", "ts", "smin", "tsmin", "smin_sw", "tsmin_sw", "ov_lam",
+           "lam", "gain", "gamma")
+KERNEL_U = 8
+# Order in which csrc/imcra.cu's `ImcraCoef` reads the coefficients.
+_KERNEL_COEFFICIENTS = (
+    "alpha_s", "one_m_alpha_s", "alpha_d", "one_m_alpha_d", "alpha_dd",
+    "one_m_alpha_dd", "xi_min", "bmin", "gamma0", "gamma1", "gamma1_m1",
+    "zeta0", "beta", "p_upthr", "q_max", "two_thirds", "one_third", "tiny",
+    "xi_ml_floor")
+
+
+class ImcraState(NamedTuple):
+    """Carry of the recursion; every tensor has leading batch dims [...]."""
+    s: torch.Tensor            # smoothed spectrogram, first iteration [..., K]
+    ts: torch.Tensor           # smoothed spectrogram, second iteration [..., K]
+    smin: torch.Tensor         # running minimum [..., K]
+    tsmin: torch.Tensor
+    smin_sw: torch.Tensor      # sub-window running minimum [..., K]
+    tsmin_sw: torch.Tensor
+    store: torch.Tensor        # minimum-tracking buffer [..., U, K]
+    tstore: torch.Tensor
+    ov_lam: torch.Tensor       # biased noise PSD [..., K]
+    lam: torch.Tensor          # bias-corrected noise PSD [..., K]
+    gain: torch.Tensor         # decision-directed Wiener gain [..., K]
+    gamma: torch.Tensor        # a-posteriori SNR [..., K]
+    j: torch.Tensor            # V-frame counter [...] int32
+    u: torch.Tensor            # filled-buffer counter [...] int32
+
+
+@functools.lru_cache(maxsize=None)
+def _coefficients(cfg: ImcraConfig, dtype: torch.dtype) -> dict:
+    """Scalar coefficients rounded as the reference package rounds them.
+
+    `alpha_s` and `alpha_d` are arrays of the working dtype there, so their
+    complements are computed in that dtype; every other constant is a
+    Python float whose expression is evaluated in double and then rounded
+    once to the working dtype."""
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+
+    def r(v):
+        return float(np_dt(v))
+
+    a_s, a_d = np_dt(cfg.alpha_s), np_dt(cfg.alpha_d)
+    return dict(
+        alpha_s=float(a_s), one_m_alpha_s=float(np_dt(1.0) - a_s),
+        alpha_d=float(a_d), one_m_alpha_d=float(np_dt(1.0) - a_d),
+        alpha_dd=r(cfg.alpha_dd), one_m_alpha_dd=r(1.0 - cfg.alpha_dd),
+        xi_min=r(cfg.xi_min), bmin=r(cfg.bmin), gamma0=r(cfg.gamma0),
+        gamma1=r(cfg.gamma1), gamma1_m1=r(cfg.gamma1 - 1.0),
+        zeta0=r(cfg.zeta0), beta=r(cfg.beta), p_upthr=r(cfg.p_upthr),
+        q_max=r(1.0 - 1e-7), two_thirds=r(2.0 / 3.0), one_third=r(1.0 / 3.0),
+        tiny=r(_TINY), xi_ml_floor=r(1e-6))
+
+
+def _fsmooth(p: torch.Tensor, c: dict) -> torch.Tensor:
+    """3-tap raised-cosine frequency smoothing [1/4, 1/2, 1/4]; the edge bins
+    renormalise over their in-range taps to [2/3, 1/3]
+    (reference: imcra.py:259-268, 335-336)."""
+    up = F.pad(p[..., 1:], (0, 1))       # p[k+1]
+    down = F.pad(p[..., :-1], (1, 0))    # p[k-1]
+    s = 0.25 * down + 0.5 * p + 0.25 * up
+    s[..., 0] = p[..., 0] * c["two_thirds"] + p[..., 1] * c["one_third"]
+    s[..., -1] = p[..., -2] * c["one_third"] + p[..., -1] * c["two_thirds"]
+    return s
+
+
+def _min_track(buf: torch.Tensor, sw: torch.Tensor, u: torch.Tensor,
+               n_u: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Push `sw` into the U-slot buffer; return (new buffer, min over the
+    filled slots)."""
+    slot = torch.arange(n_u, device=buf.device)[:, None]          # [U, 1]
+    uu = u[..., None, None]
+    pushed = torch.where(slot == uu, sw[..., None, :], buf)
+    rolled = torch.cat([buf[..., 1:, :], sw[..., None, :]], dim=-2)
+    buf = torch.where(uu < n_u, pushed, rolled)
+    count = torch.clamp_max(u + 1, n_u)[..., None, None]
+    masked = torch.where(slot < count, buf, torch.full_like(buf, np.inf))
+    return buf, masked.amin(dim=-2)
+
+
+def imcra_init(k: int, dtype: torch.dtype, cfg: ImcraConfig = ImcraConfig(),
+               batch: tuple = (), device="cpu") -> ImcraState:
+    """Fresh carry for `imcra_step` / `imcra_scan` (also a streaming state)."""
+    def z():
+        return torch.zeros(batch + (k,), dtype=dtype, device=device)
+
+    def zs():
+        return torch.zeros(batch + (cfg.u_buffers, k), dtype=dtype,
+                           device=device)
+
+    zi = torch.zeros(batch, dtype=torch.int32, device=device)
+    return ImcraState(
+        s=z(), ts=z(), smin=z(), tsmin=z(), smin_sw=z(), tsmin_sw=z(),
+        store=zs(), tstore=zs(), ov_lam=z(),
+        lam=torch.full(batch + (k,), cfg.lambda_init, dtype=dtype,
+                       device=device),
+        gain=torch.ones(batch + (k,), dtype=dtype, device=device),
+        gamma=torch.ones(batch + (k,), dtype=dtype, device=device),
+        j=zi, u=zi.clone())
+
+
+def imcra_step(st: ImcraState, y2_l: torch.Tensor, l: int,
+               cfg: ImcraConfig = ImcraConfig()
+               ) -> tuple[ImcraState, torch.Tensor]:
+    """One frame: (state, |Y_l|^2 [..., K], absolute frame index l) ->
+    (new state, noise PSD of frame l [..., K]).  `l` counts frames since the
+    stream started; it drives the frame-0 init and the IS warm-up."""
+    c = _coefficients(cfg, y2_l.dtype)
+    tiny = c["tiny"]
+
+    # frame-0 initialisation (reference imcra.py:338-361, 377-380)
+    sf = _fsmooth(y2_l, c)
+    if l == 0:
+        s = ts = smin = tsmin = smin_sw = tsmin_sw = sf
+        ov_lam = lam = y2_l
+    else:
+        s, ts, smin, tsmin = st.s, st.ts, st.smin, st.tsmin
+        smin_sw, tsmin_sw = st.smin_sw, st.tsmin_sw
+        ov_lam, lam = st.ov_lam, st.lam
+
+    # outer decision-directed recursion (imcra.py:541-557)
+    xi_g = st.gain * st.gain * st.gamma
+    gamma = y2_l / torch.clamp_min(lam, tiny)
+    xi_ml = torch.clamp_min(gamma - 1.0, c["xi_ml_floor"])
+    xi = c["alpha_dd"] * xi_g + c["one_m_alpha_dd"] * xi_ml
+    xi = torch.clamp_min(xi, c["xi_min"])
+    gain = xi / (1.0 + xi)
+
+    # smoothing shared by the warm-up and the main branch
+    s = c["alpha_s"] * s + c["one_m_alpha_s"] * sf
+    smin = torch.minimum(smin, s)
+    smin_sw = torch.minimum(smin_sw, s)
+
+    if l < cfg.is_frames:
+        # warm-up branch (imcra.py:384-398): only lam is smoothed
+        lam = c["alpha_d"] * lam + c["one_m_alpha_d"] * y2_l
+        new = st._replace(s=s, ts=ts, smin=smin, tsmin=tsmin,
+                          smin_sw=smin_sw, tsmin_sw=tsmin_sw,
+                          ov_lam=ov_lam, lam=lam, gain=gain, gamma=gamma)
+        return new, lam
+
+    # main branch (imcra.py:400-448)
+    gamma_min = y2_l / torch.clamp_min(c["bmin"] * smin, tiny)
+    zeta = s / torch.clamp_min(c["bmin"] * smin, tiny)
+    vad_i = ((gamma_min < c["gamma0"]) & (zeta < c["zeta0"])).to(y2_l.dtype)
+
+    norm = _fsmooth(vad_i, c)
+    tsf = _fsmooth(vad_i * y2_l, c)
+    tsf = torch.where(norm > 0, tsf / torch.clamp_min(norm, tiny), tsf)
+    ts = c["alpha_s"] * ts + c["one_m_alpha_s"] * tsf
+    tsmin = torch.minimum(tsmin, ts)
+    tsmin_sw = torch.minimum(tsmin_sw, ts)
+
+    tgm = y2_l / torch.clamp_min(c["bmin"] * tsmin, tiny)
+    tz = s / torch.clamp_min(c["bmin"] * tsmin, tiny)
+    q = torch.zeros_like(y2_l)
+    q = torch.where((tgm <= 1.0) & (tz < c["zeta0"]), 1.0, q)
+    mid = (tgm > 1.0) & (tgm < c["gamma1"]) & (tz < c["zeta0"])
+    q = torch.where(mid, (c["gamma1"] - tgm) / c["gamma1_m1"], q)
+
+    # a-posteriori speech probability (imcra.py:22-36), capped at p_upthr
+    nu = gamma * xi / (1.0 + xi)
+    qs = torch.clamp_max(q, c["q_max"])   # guards the q == 1 division
+    p = 1.0 / (1.0 + (qs / (1.0 - qs)) * (1.0 + xi) * torch.exp(-nu))
+    p = torch.where(q < 1.0, p, 0.0)
+    p = torch.clamp_max(p, c["p_upthr"])
+
+    t_ad = c["alpha_d"] + c["one_m_alpha_d"] * p
+    ov_lam = t_ad * ov_lam + (1.0 - t_ad) * y2_l
+    lam = c["beta"] * ov_lam
+
+    # minimum tracking every V-th main frame (imcra.py:450-481)
+    j = st.j + 1
+    fire = j == cfg.v_frames
+    store, smin_new = _min_track(st.store, smin_sw, st.u, cfg.u_buffers)
+    tstore, tsmin_new = _min_track(st.tstore, tsmin_sw, st.u, cfg.u_buffers)
+    f1, f2 = fire[..., None], fire[..., None, None]
+    new = ImcraState(
+        s=s, ts=ts,
+        smin=torch.where(f1, smin_new, smin),
+        tsmin=torch.where(f1, tsmin_new, tsmin),
+        smin_sw=torch.where(f1, s, smin_sw),
+        tsmin_sw=torch.where(f1, ts, tsmin_sw),
+        store=torch.where(f2, store, st.store),
+        tstore=torch.where(f2, tstore, st.tstore),
+        ov_lam=ov_lam, lam=lam, gain=gain, gamma=gamma,
+        j=torch.where(fire, 0, j).to(torch.int32),
+        u=torch.where(fire, st.u + 1, st.u).to(torch.int32))
+    return new, lam
+
+
+def imcra_scan_plain(y2: torch.Tensor, state: ImcraState | None = None,
+                     l0: int = 0, cfg: ImcraConfig = ImcraConfig()
+                     ) -> tuple[torch.Tensor, ImcraState]:
+    """Plain frame loop: y2 [..., T, K] -> (psd [..., T, K], final state).
+    `state` None starts a fresh recursion."""
+    if state is None:
+        state = imcra_init(y2.shape[-1], y2.dtype, cfg, y2.shape[:-2],
+                           y2.device)
+    out = []
+    for t in range(y2.shape[-2]):
+        state, lam = imcra_step(state, y2[..., t, :], l0 + t, cfg)
+        out.append(lam)
+    if not out:
+        return torch.empty_like(y2), state
+    return torch.stack(out, dim=-2), state
+
+
+def pack_state(state: ImcraState) -> tuple[torch.Tensor, torch.Tensor]:
+    """State -> the kernel's layout: ([B, 26, K] float rows, [B, 2] int32
+    (j, u))."""
+    rows = [getattr(state, f)[:, None, :] for f in _FIELDS]
+    packed = torch.cat(rows + [state.store, state.tstore], dim=1)
+    ju = torch.stack([state.j, state.u], dim=1).to(torch.int32)
+    return packed.contiguous(), ju.contiguous()
+
+
+def unpack_state(packed: torch.Tensor, ju: torch.Tensor) -> ImcraState:
+    n = len(_FIELDS)
+    fields = {f: packed[:, i] for i, f in enumerate(_FIELDS)}
+    return ImcraState(store=packed[:, n:n + KERNEL_U],
+                      tstore=packed[:, n + KERNEL_U:],
+                      j=ju[:, 0], u=ju[:, 1], **fields)
+
+
+def imcra_scan_packed(y2: torch.Tensor, st_in: torch.Tensor,
+                      ju_in: torch.Tensor, l0: int = 0,
+                      cfg: ImcraConfig = ImcraConfig()):
+    """Launch the `imcra_scan` kernel on CUDA tensors in its own layout:
+    y2 [B, T, K] and the packed state -> (psd [B, T, K], state rows out,
+    (j, u) out).  Checks what the kernel takes and raises on the rest."""
+    if y2.device.type != "cuda":
+        raise ValueError(f"imcra_scan kernel: unsupported device {y2.device}")
+    if y2.dim() != 3:
+        raise ValueError(f"imcra_scan expects [B, T, K], got {tuple(y2.shape)}")
+    b, t, k = y2.shape
+    if y2.dtype != torch.float32 or st_in.dtype != torch.float32:
+        raise TypeError(f"imcra_scan kernel takes float32, got {y2.dtype}")
+    if cfg.u_buffers != KERNEL_U:
+        raise ValueError(f"imcra_scan kernel is built for U={KERNEL_U}")
+    if not 2 <= k <= 1024:
+        raise ValueError(f"imcra_scan kernel takes 2 <= K <= 1024, got {k}")
+    if (st_in.shape != (b, len(_FIELDS) + 2 * KERNEL_U, k)
+            or ju_in.shape != (b, 2) or ju_in.dtype != torch.int32):
+        raise ValueError("imcra_scan: state does not match y2")
+    if not all(x.is_contiguous() and x.device == y2.device
+               for x in (y2, st_in, ju_in)):
+        raise ValueError("imcra_scan: inputs must be contiguous, on one device")
+    psd = torch.empty_like(y2)
+    st_out = torch.empty_like(st_in)
+    ju_out = torch.empty_like(ju_in)
+    c = _coefficients(cfg, torch.float32)
+    coef = np.array([c[name] for name in _KERNEL_COEFFICIENTS], np.float32)
+    kernels.launch("imcra_scan",
+                   y2.data_ptr(), psd.data_ptr(), st_in.data_ptr(),
+                   st_out.data_ptr(), ju_in.data_ptr(), ju_out.data_ptr(),
+                   b, t, k, int(l0), coef.ctypes.data, cfg.is_frames,
+                   cfg.v_frames, torch.cuda.current_stream(y2.device).cuda_stream)
+    return psd, st_out, ju_out
+
+
+def imcra_scan(y2: torch.Tensor, state: ImcraState | None = None,
+               l0: int = 0, cfg: ImcraConfig = ImcraConfig()
+               ) -> tuple[torch.Tensor, ImcraState]:
+    """IMCRA over a batch of power spectra.
+
+    y2: ``[B, T, K]`` |Y|^2 frames; `state` carries the recursion in and out
+    (None starts a fresh one); `l0` is the absolute index of frame 0 (a
+    stream picks up where its last chunk ended).  Returns the noise PSD
+    ``[B, T, K]`` and the final state.
+
+    A CPU tensor takes the plain frame loop.  A CUDA tensor launches the
+    `imcra_scan` kernel (float32 only) or raises.
+    """
+    if y2.dim() != 3:
+        raise ValueError(f"imcra_scan expects [B, T, K], got {tuple(y2.shape)}")
+    if y2.device.type == "cpu":
+        return imcra_scan_plain(y2, state, l0, cfg)
+    if state is None:
+        state = imcra_init(y2.shape[-1], y2.dtype, cfg, y2.shape[:1],
+                           y2.device)
+    psd, st_out, ju_out = imcra_scan_packed(y2, *pack_state(state), l0, cfg)
+    return psd, unpack_state(st_out, ju_out)
+
+
+def imcra_estimate_psd(spec: torch.Tensor,
+                       cfg: ImcraConfig = ImcraConfig()) -> torch.Tensor:
+    """Noise PSD of a complex spectrogram ``[..., K, T]`` -> ``[..., K, T]``
+    (reference `imcra_est.estimate`, audio_util.py:113-117)."""
+    y2 = spec.real * spec.real + spec.imag * spec.imag
+    y2 = y2.to(torch.promote_types(y2.dtype, torch.float32))
+    lead = y2.shape[:-2]
+    k, t = y2.shape[-2:]
+    frames = y2.transpose(-1, -2).reshape((-1, t, k)).contiguous()
+    psd, _ = imcra_scan(frames, None, 0, cfg)
+    return psd.reshape(lead + (t, k)).transpose(-1, -2)
