@@ -13,11 +13,24 @@ Phases, in order; any failure raises:
   3. kernel phase, TF32 off: each kernel against its plain PyTorch version
      on the card, at the main path's shapes (IMCRA [8, 257, 145]: eight
      noise spectra of the 36864-sample bucket; gammatone cascade
-     [64, 36000] with per-row poles in [0.5, 0.991]); IMCRA also at
+     [64, 36000] with per-row poles in [0.5, 0.991]).  IMCRA also at
      [8, 257, 401] (a 102400-sample bucket), where minimum tracking fires
-     more than U = 8 times and its slot store rolls.  Errors, the time per
-     call from 20 calls queued between one pair of CUDA events (median of
-     5 such bursts), and each kernel's device time from torch.profiler;
+     more than U = 8 times and its slot store rolls; at both lengths the
+     kernel's fresh start equals a scan from the packed `imcra_init` state
+     bit for bit, the state-less call gives the same PSD, and a scan resumed
+     mid-utterance from the carried state equals the whole scan; the
+     kernel's fast division equals IEEE division on 1.4e9 operand pairs,
+     and the kernel is timed at 32, 257 and 513 bins (one, three and five
+     warps to each of an SM's schedulers).  The
+     cascade also against `lfilter` in float64 (bar 2e-5), at a ragged
+     length (36001), past one shared-memory segment (100000) and at 1 and
+     1024 samples, and beside it the cuFFT yardstick that the port never
+     calls: FFT convolution with the four-pole impulse response, checked
+     against `lfilter` too.  Kernel times: 20 calls between one pair of
+     CUDA events (median of 5 such bursts), replayed from a CUDA graph where
+     the host would otherwise set the pace; each kernel's device time from
+     torch.profiler; IMCRA's wrapper as `featurize_batch` calls it and the
+     packed wrapper of a scan from `imcra_init`;
   4. serving phase, the port's main path: `EnhanceServer` at full width
      (hidden 256, 6 blocks, 64 bands; weights from a numpy seed), batch 8,
      on 127.0.0.1:0; ten concurrent requests over two buckets, then three
@@ -30,7 +43,7 @@ Phases, in order; any failure raises:
      the golden utterance also against the CPU single-utterance path, and
      each window's replies for length and RMS.  Launch counts are zeroed just
      before the server starts and read after it stops: the IMCRA kernel
-     must have run once per served batch;
+     must have run once per served batch, and no state was packed;
   5. one JSON line of kernel records, the card line again, and last
      `{"ok": true, "device": {...}}`.
 """
@@ -69,6 +82,16 @@ F32_FLOP_PER_S = 67e12
 # update and the minimum tracking (~50 more).
 IMCRA_OPS_WARM = 25
 IMCRA_OPS_MAIN = 75
+# The recursion's loop-carried chain, in dependent float32 operations per
+# frame, counted from csrc/imcra.cu with a division as its six dependent
+# steps from the divisor (reciprocal, Newton step, quotient, correction):
+# a main frame carries lam -> gamma_new (7) -> xi (5) -> nu (7) -> exp (5)
+# -> p (11) -> ov_lam, lam (6); a warm-up frame carries gain -> xi -> gain
+# (12).  At the float32 pipeline's 4-cycle latency and the card's highest
+# SM clock this is the least time the frames can take one after another.
+IMCRA_CHAIN_MAIN = 41
+IMCRA_CHAIN_WARM = 12
+FP32_LATENCY_CYCLES = 4
 BUCKET = 36864
 LONG_BUCKET = 102400   # IMCRA check past the 9th tracker fire (slot roll)
 WINDOWS = 3            # throughput windows
@@ -82,6 +105,14 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def cuda_ms(fn, calls: int = 20, samples: int = 5, warmup: int = 3) -> float:
@@ -99,6 +130,32 @@ def cuda_ms(fn, calls: int = 20, samples: int = 5, warmup: int = 3) -> float:
         start.record()
         for _ in range(calls):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def graph_ms(fn, calls: int = 20, samples: int = 5) -> float:
+    """Device time per call of `fn`: `calls` calls captured in one CUDA
+    graph, its replay timed between CUDA events, divided by `calls`; the
+    median of `samples` replays.  The host launches once per replay, so a
+    call shorter than its launch overhead is still timed on the device."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
@@ -179,11 +236,23 @@ def noise_power(dev, bucket: int, seed: int) -> torch.Tensor:
 
 
 def imcra_errors(y2: torch.Tensor) -> dict:
-    """`imcra_scan` against `imcra_scan_plain` on one input; raises unless
-    within the bars."""
+    """`imcra_scan` against `imcra_scan_plain` on one input, and the
+    kernel's three ways in: its fresh start (state out), a scan from the
+    packed `imcra_init` state, and the state-less call; raises unless within
+    the bars and the three agree bit for bit."""
+    cfg = ImcraConfig()
+    b, _, k = y2.shape
     psd_k, st_k = imcra.imcra_scan(y2)
     psd_p, st_p = imcra.imcra_scan_plain(y2)
+    psd_i, st_i = imcra.imcra_scan(y2, imcra.imcra_init(k, y2.dtype, cfg, (b,),
+                                                        y2.device))
+    psd_n = imcra.imcra_psd(y2, cfg)
     torch.cuda.synchronize()
+    if not (torch.equal(psd_k, psd_i)
+            and all(torch.equal(x, z) for x, z in zip(st_k, st_i))):
+        raise AssertionError("imcra_scan: fresh start != scan from imcra_init")
+    if not torch.equal(psd_n, psd_k):
+        raise AssertionError("imcra_scan: state-less PSD != fresh PSD")
     kp, pp = psd_k.double().cpu().numpy(), psd_p.double().cpu().numpy()
     rel = np.abs(kp - pp) / (np.abs(pp) + 1e-12)
     state_rel = max(float(((a.double() - c.double()).abs()
@@ -196,7 +265,8 @@ def imcra_errors(y2: torch.Tensor) -> dict:
            "bit_equal_share": float(np.mean(kp == pp)),
            "state_max_rel": state_rel,
            "tracker_fires": int(st_k.u.min())}
-    print(f"imcra_scan vs plain at {list(y2.shape)} [B, T, K]: {rec}")
+    print(f"imcra_scan vs plain at {list(y2.shape)} [B, T, K]: {rec}; fresh "
+          f"start, scan from imcra_init and state-less call bit-equal")
     # The reference package's float32 bar for IMCRA (tests/test_imcra.py),
     # and a tight maximum: both versions do the same float32 operations in
     # the same order, so a bin that goes wrong anywhere shows here.
@@ -233,24 +303,47 @@ def imcra_phase(dev) -> dict:
         raise AssertionError(f"long IMCRA check fired the tracker only "
                              f"{rec_long['tracker_fires']} times")
 
-    st_in, ju_in = imcra.pack_state(imcra.imcra_init(k, y2.dtype, cfg, (b,),
-                                                     dev))
+    # the claim the kernel's divisions rest on: fast path == IEEE division
+    bad, pairs = imcra.fast_divide_check(dev)
+    print(f"imcra fast division vs IEEE a / b: {bad} mismatches in {pairs} "
+          f"operand pairs")
+    if bad or pairs < 10 ** 9:
+        raise AssertionError(f"fast division: {bad} mismatches in {pairs}")
 
-    def kernel_only():
-        return imcra.imcra_scan_packed(y2, st_in, ju_in, 0, cfg)
+    def kernel_only():          # what featurize_batch launches
+        return imcra.imcra_scan_packed(y2, None, None, 0, cfg,
+                                       keep_state=False)
+
+    def packed_wrapper():       # a scan from imcra_init, its state packed
+        return imcra.imcra_scan(y2, imcra.imcra_init(k, y2.dtype, cfg, (b,),
+                                                     dev))
 
     ms = cuda_ms(kernel_only)
     prof_ms = profiler_ms(kernel_only, "imcra_scan_kernel")
-    wrapper_ms = cuda_ms(lambda: imcra.imcra_scan(y2))
+    wrapper_ms = cuda_ms(lambda: imcra.imcra_psd(y2, cfg))
+    packed_ms = cuda_ms(packed_wrapper)
     plain_ms = cuda_ms(lambda: imcra.imcra_scan_plain(y2), calls=2,
                        samples=3, warmup=1)
+    # one, three and five warps on each of an SM's four schedulers
+    ms_by_bins = {}
+    for bins in (32, k, 513):
+        y2_b = torch.from_numpy(np.random.RandomState(bins).rand(b, t, bins)
+                                .astype(np.float32)).to(dev)
+        ms_by_bins[bins] = cuda_ms(lambda: imcra.imcra_scan_packed(
+            y2_b, None, None, 0, cfg, keep_state=False))
     warm = min(t, cfg.is_frames)
-    n_bytes = 4 * (2 * b * t * k + 2 * st_in.numel()) + 4 * 2 * ju_in.numel()
+    n_bytes = 4 * 2 * b * t * k                   # |Y|^2 in, PSD out
     n_ops = b * k * (warm * IMCRA_OPS_WARM + (t - warm) * IMCRA_OPS_MAIN)
     bound_ms, bound_by = bound(n_bytes, n_ops)
+    clock = max_sm_clock_hz()
+    chain_ms = ((warm * IMCRA_CHAIN_WARM + (t - warm) * IMCRA_CHAIN_MAIN)
+                * FP32_LATENCY_CYCLES / clock * 1e3)
     print(f"imcra_scan: kernel {ms:.4f} ms (events), {prof_ms:.4f} ms "
-          f"(profiler), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by})")
+          f"(profiler), wrapper as featurize_batch calls it {wrapper_ms:.4f} "
+          f"ms, packed wrapper from imcra_init {packed_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), chain "
+          f"bound {chain_ms:.6f} ms at {clock / 1e6:.0f} MHz; kernel ms by "
+          f"bins (random |Y|^2, [8, bins, {t}]) {ms_by_bins}")
     return {"name": "imcra_scan", "route": "cuda",
             "source": "nelegan_tpu_torch/csrc/imcra.cu",
             "replaces": "nelegan_tpu/dsp/imcra.py:206 (lax.scan of "
@@ -258,61 +351,132 @@ def imcra_phase(dev) -> dict:
             "max_abs_err": rec["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "profiler_ms": prof_ms,
-            "wrapper_ms": wrapper_ms, "median_rel_err": rec["median_rel"],
+            "wrapper_ms": wrapper_ms, "packed_wrapper_ms": packed_ms,
+            "chain_bound_ms": chain_ms, "sm_clock_mhz": clock / 1e6,
+            "ms_by_bins": ms_by_bins, "divide_check_pairs": pairs,
+            "divide_check_mismatches": bad,
+            "median_rel_err": rec["median_rel"],
             "p99_rel_err": rec["p99_rel"], "max_rel_err": rec["max_rel"],
             "shape": [b, k, t], "long_shape": [b, k, y2_long.shape[1]],
             "long_max_rel_err": rec_long["max_rel"],
             "long_tracker_fires": rec_long["tracker_fires"]}
 
 
-def cascade_phase(dev) -> dict:
-    from scipy.signal import lfilter
-    rows, n = 64, 36000
-    rng = np.random.RandomState(2)
-    x_np = rng.randn(rows, n).astype(np.float32)
-    a_np = np.linspace(0.5, 0.991, rows).astype(np.float32)
-    x, a = torch.from_numpy(x_np).to(dev), torch.from_numpy(a_np).to(dev)
+def fft_len(n: int) -> int:
+    """Smallest 2^k or 3*2^k >= 2n: the FFT size the reference package's
+    `ops/iir._fft_len` gives a causal convolution of length n."""
+    m = 1
+    while m < 2 * n:
+        m *= 2
+    m3 = 3 * (m // 4)
+    return m3 if m3 >= 2 * n else m
 
-    y_k = cascade.gammatone_cascade(x, a)
-    y_p = cascade.gammatone_cascade_plain(x, a)
+
+def four_pole_ir(a_np: np.ndarray, n: int) -> np.ndarray:
+    """h[k] = C(k+3, 3) a^k [R, n], the impulse response of 1/(1 - a z^-1)^4,
+    evaluated in float64 in the log domain (`ops/iir.gammatone_ir` without
+    its numerator)."""
+    k = np.arange(n, dtype=np.float64)
+    log_c = np.log1p(k) + np.log(k + 2.0) + np.log(k + 3.0) - np.log(6.0)
+    a = a_np.astype(np.float64)[:, None]
+    return np.exp(k * np.log(a) + log_c).astype(np.float32)
+
+
+def cascade_checks(dev, rows: int, n: int, a_np: np.ndarray, seed: int,
+                   fft: bool = False) -> dict:
+    """The kernel (and with `fft` the cuFFT yardstick) against the plain
+    version and `lfilter` in float64 on one seeded input; raises beyond the
+    reference package's bar for its Pallas cascade, 2e-5 relative to each
+    row's largest value (tests/test_pallas.py)."""
+    from scipy.signal import lfilter
+    x_np = np.random.RandomState(seed).randn(rows, n).astype(np.float32)
+    x, a = torch.from_numpy(x_np).to(dev), torch.from_numpy(a_np).to(dev)
+    out = {"kernel": cascade.gammatone_cascade(x, a),
+           "plain": cascade.gammatone_cascade_plain(x, a)}
+    if fft:
+        m = fft_len(n)
+        h = torch.from_numpy(four_pole_ir(a_np, n)).to(dev)
+        out["fft"] = torch.fft.irfft(torch.fft.rfft(x, m)
+                                     * torch.fft.rfft(h, m), m)[:, :n]
     torch.cuda.synchronize()
-    yk, yp = y_k.cpu().numpy(), y_p.cpu().numpy()
-    # per row: the a = 0.991 rows reach ~1e7, the a = 0.5 rows ~10
-    rel_plain = float((np.abs(yk - yp).max(1) / np.abs(yp).max(1)).max())
-    rel_lfilter = 0.0
+    got = {key: v.cpu().numpy() for key, v in out.items()}
+    refs = []
     for i in range(rows):
         c = float(a_np[i])
         den = np.convolve(np.convolve([1, -c], [1, -c]),
                           np.convolve([1, -c], [1, -c]))
-        ref = lfilter([1.0], den, x_np[i].astype(np.float64))
-        rel_lfilter = max(rel_lfilter,
-                          float(np.abs(yk[i] - ref).max() / np.abs(ref).max()))
-    print(f"gammatone_cascade at [{rows}, {n}]: rel err vs plain "
-          f"{rel_plain:.3e}, vs lfilter (f64) {rel_lfilter:.3e}")
-    # the reference package's bar for its Pallas cascade (tests/test_pallas.py)
-    if not (rel_plain < 2e-5 and rel_lfilter < 2e-5):
-        raise AssertionError("gammatone_cascade disagrees with its plain "
-                             "version or lfilter")
+        refs.append(lfilter([1.0], den, x_np[i].astype(np.float64)))
+    ref = np.stack(refs)
+    scale = np.abs(ref).max(1)        # a = 0.991 rows reach ~1e7, a = 0.5 ~10
+    rec = {"shape": [rows, n],
+           "rel_vs_plain": float((np.abs(got["kernel"] - got["plain"]).max(1)
+                                  / scale).max()),
+           "max_abs_err": float(np.abs(got["kernel"] - got["plain"]).max())}
+    for key, y in got.items():
+        rec[f"{key}_rel_vs_lfilter"] = float((np.abs(y - ref).max(1)
+                                              / scale).max())
+    print(f"gammatone_cascade at {[rows, n]}, a in [{a_np.min()}, "
+          f"{a_np.max()}]: {rec}")
+    if not all(v < 2e-5 for key, v in rec.items() if "rel" in key):
+        raise AssertionError(f"gammatone_cascade at {[rows, n]} beyond 2e-5: "
+                             f"{rec}")
+    return rec
 
-    ms = cuda_ms(lambda: cascade.gammatone_cascade(x, a))
-    prof_ms = profiler_ms(lambda: cascade.gammatone_cascade(x, a),
-                          "gammatone_cascade_kernel")
+
+def cascade_phase(dev) -> dict:
+    rows, n = 64, 36000
+    a_np = np.linspace(0.5, 0.991, rows).astype(np.float32)
+    main = cascade_checks(dev, rows, n, a_np, 2, fft=True)
+    edge_a = np.array([0.991, 0.5], np.float32)
+    others = [cascade_checks(dev, 2, m, edge_a, 5 + i)
+              for i, m in enumerate((36001, 100000, 1, 1024))]
+
+    x = torch.from_numpy(np.random.RandomState(2).randn(rows, n)
+                         .astype(np.float32)).to(dev)
+    a = torch.from_numpy(a_np).to(dev)
+    m = fft_len(n)
+    h = torch.from_numpy(four_pole_ir(a_np, n)).to(dev)   # built once, untimed
+
+    def kernel():
+        return cascade.gammatone_cascade(x, a)
+
+    def library():
+        return torch.fft.irfft(torch.fft.rfft(x, m) * torch.fft.rfft(h, m),
+                               m)[:, :n]
+
+    ms = graph_ms(kernel)
+    prof_ms = profiler_ms(kernel, "gammatone_cascade_kernel")
+    eager_ms = cuda_ms(kernel)
+    library_ms = graph_ms(library)
+    library_eager_ms = cuda_ms(library)
     plain_ms = cuda_ms(lambda: cascade.gammatone_cascade_plain(x, a),
                        calls=4, samples=3, warmup=1)
     bound_ms, bound_by = bound(4 * (2 * rows * n + rows), 8 * rows * n)
-    print(f"gammatone_cascade: kernel {ms:.4f} ms (events), {prof_ms:.4f} "
-          f"ms (profiler), plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by}); sequential chain "
-          f"{n} samples x 4 dependent FMAs per thread")
+    print(f"gammatone_cascade: kernel {ms:.4f} ms (graph replay, events), "
+          f"{prof_ms:.4f} ms (profiler), {eager_ms:.4f} ms (eager calls, "
+          f"events); cuFFT yardstick (FFT size {m}) {library_ms:.4f} ms "
+          f"(graph), {library_eager_ms:.4f} ms (eager); plain {plain_ms:.4f} "
+          f"ms; bound {bound_ms:.6f} ms ({bound_by}), roofline share "
+          f"{bound_ms / ms:.3f}")
     return {"name": "gammatone_cascade", "route": "cuda",
             "source": "nelegan_tpu_torch/csrc/cascade.cu",
             "replaces": "nelegan_tpu/ops/pallas_scan.py:68 "
                         "(gammatone_cascade_pallas, body _cascade_kernel :37)",
-            "max_abs_err": float(np.abs(yk - yp).max()), "ms": ms,
+            "max_abs_err": main["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "profiler_ms": prof_ms,
-            "rel_err_vs_plain": rel_plain,
-            "rel_err_vs_lfilter": rel_lfilter, "shape": [rows, n],
+            "library_ms": library_ms, "profiler_ms": prof_ms,
+            "eager_ms": eager_ms, "library_eager_ms": library_eager_ms,
+            "library": f"irfft(rfft(x, {m}) * rfft(h, {m}))[:, :{n}], h the "
+                       f"four-pole impulse response",
+            "roofline_share": bound_ms / ms,
+            "rel_err_vs_plain": main["rel_vs_plain"],
+            "rel_err_vs_lfilter": main["kernel_rel_vs_lfilter"],
+            "library_rel_err_vs_lfilter": main["fft_rel_vs_lfilter"],
+            "shape": [rows, n],
+            "other_shapes": [{"shape": o["shape"],
+                              "rel_err_vs_plain": o["rel_vs_plain"],
+                              "rel_err_vs_lfilter": o["kernel_rel_vs_lfilter"]}
+                             for o in others],
             "on_main_path": False}
 
 
@@ -471,8 +635,10 @@ def direct_pcm16(gen, reqs, dev):
         cp, lens = pipeline.reflect_pad_batch(cl, blen)
         npd, _ = pipeline.reflect_pad_batch(no, blen)
         with torch.inference_mode():
-            feats = pipeline.featurize_batch(cp, npd, lens, device=dev,
-                                             scan=imcra.imcra_scan_plain)
+            feats = pipeline.featurize_batch(
+                cp, npd, lens, device=dev,
+                noise_psd=lambda y2, cfg: imcra.imcra_scan_plain(y2, None, 0,
+                                                                 cfg)[0])
             wav, _, out_len = pipeline.enhance_batch(gen, feats, device=dev)
             q = pipeline.pcm16_quantize_i16(wav).cpu().numpy()
         for j, i in enumerate(idx):
@@ -512,6 +678,9 @@ def serving_phase(dev) -> dict:
     gen_cpu = seeded_generator(0).eval()
     reqs = build_requests()
 
+    packs = []                 # state packings on the served path: none
+    pack_state = imcra.pack_state
+    imcra.pack_state = lambda st: (packs.append(1), pack_state(st))[1]
     kernels.reset_launches()
     server = EnhanceServer(gen, batch_size=8, max_wait_ms=15.0, device=dev)
     step_s, group_s = [], []
@@ -534,6 +703,7 @@ def serving_phase(dev) -> dict:
     finally:
         server.stop()
         serve_thread.join(timeout=30)
+        imcra.pack_state = pack_state
     if serve_thread.is_alive():
         raise RuntimeError("server thread did not stop")
     launches = dict(kernels.launches)
@@ -543,6 +713,9 @@ def serving_phase(dev) -> dict:
     if launches["imcra_scan"] == 0 or launches["imcra_scan"] != batches:
         raise AssertionError(f"imcra_scan launched {launches['imcra_scan']} "
                              f"times for {batches} served batches")
+    if packs:
+        raise AssertionError(f"the served path packed an IMCRA state "
+                             f"{len(packs)} times")
 
     want = direct_pcm16(gen, reqs, dev)
     n_diff = n_total = max_lsb = 0
@@ -588,7 +761,8 @@ def serving_phase(dev) -> dict:
     res = {"batch_ms": batch_ms, "profile": prof, "windows": windows,
            "requests_per_s_min": min(rates), "requests_per_s_max": max(rates),
            "pcm16_diff_samples": n_diff, "pcm16_total_samples": n_total,
-           "launches": launches, "batches": batches}
+           "launches": launches, "batches": batches,
+           "state_packings": len(packs)}
     print(f"serving: batch of 8 at {BUCKET} samples {res['batch_ms']:.3f} ms "
           f"(median of 10, host clock, ends in the copy to host); "
           f"{min(rates):.2f}-{max(rates):.2f} requests/s over {WINDOWS} "

@@ -49,7 +49,7 @@ _KERNEL_COEFFICIENTS = (
     "alpha_s", "one_m_alpha_s", "alpha_d", "one_m_alpha_d", "alpha_dd",
     "one_m_alpha_dd", "xi_min", "bmin", "gamma0", "gamma1", "gamma1_m1",
     "zeta0", "beta", "p_upthr", "q_max", "two_thirds", "one_third", "tiny",
-    "xi_ml_floor")
+    "xi_ml_floor", "lambda_init")
 
 
 class ImcraState(NamedTuple):
@@ -92,7 +92,7 @@ def _coefficients(cfg: ImcraConfig, dtype: torch.dtype) -> dict:
         gamma1=r(cfg.gamma1), gamma1_m1=r(cfg.gamma1 - 1.0),
         zeta0=r(cfg.zeta0), beta=r(cfg.beta), p_upthr=r(cfg.p_upthr),
         q_max=r(1.0 - 1e-7), two_thirds=r(2.0 / 3.0), one_third=r(1.0 / 3.0),
-        tiny=r(_TINY), xi_ml_floor=r(1e-6))
+        tiny=r(_TINY), xi_ml_floor=r(1e-6), lambda_init=r(cfg.lambda_init))
 
 
 def _fsmooth(p: torch.Tensor, c: dict) -> torch.Tensor:
@@ -266,64 +266,112 @@ def unpack_state(packed: torch.Tensor, ju: torch.Tensor) -> ImcraState:
                       j=ju[:, 0], u=ju[:, 1], **fields)
 
 
-def imcra_scan_packed(y2: torch.Tensor, st_in: torch.Tensor,
-                      ju_in: torch.Tensor, l0: int = 0,
-                      cfg: ImcraConfig = ImcraConfig()):
+@functools.lru_cache(maxsize=None)
+def _kernel_coefficients(cfg: ImcraConfig) -> np.ndarray:
+    """The kernel's coefficient array for `cfg`, built once: each launch
+    passes its address."""
+    c = _coefficients(cfg, torch.float32)
+    coef = np.array([c[name] for name in _KERNEL_COEFFICIENTS], np.float32)
+    coef.setflags(write=False)
+    return coef
+
+
+def imcra_scan_packed(y2: torch.Tensor, st_in: torch.Tensor | None = None,
+                      ju_in: torch.Tensor | None = None, l0: int = 0,
+                      cfg: ImcraConfig = ImcraConfig(),
+                      keep_state: bool = True):
     """Launch the `imcra_scan` kernel on CUDA tensors in its own layout:
     y2 [B, T, K] and the packed state -> (psd [B, T, K], state rows out,
-    (j, u) out).  Checks what the kernel takes and raises on the rest."""
+    (j, u) out).  `st_in` None starts a fresh recursion inside the kernel;
+    `keep_state` False writes no state and returns None for both.  Checks
+    what the kernel takes and raises on the rest."""
     if y2.device.type != "cuda":
         raise ValueError(f"imcra_scan kernel: unsupported device {y2.device}")
     if y2.dim() != 3:
         raise ValueError(f"imcra_scan expects [B, T, K], got {tuple(y2.shape)}")
     b, t, k = y2.shape
-    if y2.dtype != torch.float32 or st_in.dtype != torch.float32:
+    if y2.dtype != torch.float32:
         raise TypeError(f"imcra_scan kernel takes float32, got {y2.dtype}")
     if cfg.u_buffers != KERNEL_U:
         raise ValueError(f"imcra_scan kernel is built for U={KERNEL_U}")
     if not 2 <= k <= 1024:
         raise ValueError(f"imcra_scan kernel takes 2 <= K <= 1024, got {k}")
-    if (st_in.shape != (b, len(_FIELDS) + 2 * KERNEL_U, k)
-            or ju_in.shape != (b, 2) or ju_in.dtype != torch.int32):
-        raise ValueError("imcra_scan: state does not match y2")
-    if not all(x.is_contiguous() and x.device == y2.device
-               for x in (y2, st_in, ju_in)):
+    state_shape = (b, len(_FIELDS) + 2 * KERNEL_U, k)
+    inputs = (y2,)
+    if st_in is not None:
+        if (st_in.dtype != torch.float32 or st_in.shape != state_shape
+                or ju_in is None or ju_in.shape != (b, 2)
+                or ju_in.dtype != torch.int32):
+            raise ValueError("imcra_scan: state does not match y2")
+        inputs = (y2, st_in, ju_in)
+    if not all(x.is_contiguous() and x.device == y2.device for x in inputs):
         raise ValueError("imcra_scan: inputs must be contiguous, on one device")
     psd = torch.empty_like(y2)
-    st_out = torch.empty_like(st_in)
-    ju_out = torch.empty_like(ju_in)
-    c = _coefficients(cfg, torch.float32)
-    coef = np.array([c[name] for name in _KERNEL_COEFFICIENTS], np.float32)
+    st_out = ju_out = None
+    if keep_state:
+        st_out = torch.empty(state_shape, dtype=torch.float32, device=y2.device)
+        ju_out = torch.empty((b, 2), dtype=torch.int32, device=y2.device)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     kernels.launch("imcra_scan",
-                   y2.data_ptr(), psd.data_ptr(), st_in.data_ptr(),
-                   st_out.data_ptr(), ju_in.data_ptr(), ju_out.data_ptr(),
-                   b, t, k, int(l0), coef.ctypes.data, cfg.is_frames,
-                   cfg.v_frames, torch.cuda.current_stream(y2.device).cuda_stream)
+                   y2.data_ptr(), psd.data_ptr(), ptr(st_in), ptr(st_out),
+                   ptr(ju_in), ptr(ju_out), b, t, k, int(l0),
+                   _kernel_coefficients(cfg).ctypes.data, cfg.is_frames,
+                   cfg.v_frames,
+                   torch.cuda.current_stream(y2.device).cuda_stream)
     return psd, st_out, ju_out
 
 
 def imcra_scan(y2: torch.Tensor, state: ImcraState | None = None,
-               l0: int = 0, cfg: ImcraConfig = ImcraConfig()
-               ) -> tuple[torch.Tensor, ImcraState]:
+               l0: int = 0, cfg: ImcraConfig = ImcraConfig(),
+               keep_state: bool = True
+               ) -> tuple[torch.Tensor, ImcraState | None]:
     """IMCRA over a batch of power spectra.
 
     y2: ``[B, T, K]`` |Y|^2 frames; `state` carries the recursion in and out
     (None starts a fresh one); `l0` is the absolute index of frame 0 (a
     stream picks up where its last chunk ended).  Returns the noise PSD
-    ``[B, T, K]`` and the final state.
+    ``[B, T, K]`` and the final state, or None for it when `keep_state` is
+    False.
 
     A CPU tensor takes the plain frame loop.  A CUDA tensor launches the
-    `imcra_scan` kernel (float32 only) or raises.
+    `imcra_scan` kernel (float32 only) or raises; a fresh scan starts the
+    recursion inside the kernel, without building or packing a state.
     """
     if y2.dim() != 3:
         raise ValueError(f"imcra_scan expects [B, T, K], got {tuple(y2.shape)}")
     if y2.device.type == "cpu":
-        return imcra_scan_plain(y2, state, l0, cfg)
-    if state is None:
-        state = imcra_init(y2.shape[-1], y2.dtype, cfg, y2.shape[:1],
-                           y2.device)
-    psd, st_out, ju_out = imcra_scan_packed(y2, *pack_state(state), l0, cfg)
-    return psd, unpack_state(st_out, ju_out)
+        psd, st = imcra_scan_plain(y2, state, l0, cfg)
+        return psd, (st if keep_state else None)
+    packed = (None, None) if state is None else pack_state(state)
+    psd, st_out, ju_out = imcra_scan_packed(y2, *packed, l0, cfg, keep_state)
+    return psd, (unpack_state(st_out, ju_out) if keep_state else None)
+
+
+def imcra_psd(y2: torch.Tensor, cfg: ImcraConfig = ImcraConfig()
+              ) -> torch.Tensor:
+    """Noise PSD ``[B, T, K]`` of a fresh scan over ``y2 [B, T, K]``, the
+    final state not kept: on a CUDA tensor, one launch."""
+    return imcra_scan(y2, None, 0, cfg, keep_state=False)[0]
+
+
+def fast_divide_check(device, seed: int = 1, blocks: int = 1320,
+                      iters: int = 4096) -> tuple[int, int]:
+    """Check on the card that the kernel's fast division equals IEEE division
+    wherever it takes it (csrc/imcra.cu `imcra_divide_check`), over
+    blocks x 256 x iters pseudo-random operand pairs.  Returns (mismatches,
+    pairs compared)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"fast_divide_check needs a CUDA device, not "
+                         f"{device}")
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    kernels.launch("imcra_divide_check", counts.data_ptr(), seed, blocks, iters,
+                   torch.cuda.current_stream(device).cuda_stream)
+    bad, pairs = counts.tolist()
+    return bad, pairs
 
 
 def imcra_estimate_psd(spec: torch.Tensor,
@@ -335,5 +383,5 @@ def imcra_estimate_psd(spec: torch.Tensor,
     lead = y2.shape[:-2]
     k, t = y2.shape[-2:]
     frames = y2.transpose(-1, -2).reshape((-1, t, k)).contiguous()
-    psd, _ = imcra_scan(frames, None, 0, cfg)
+    psd = imcra_psd(frames, cfg)
     return psd.reshape(lead + (t, k)).transpose(-1, -2)

@@ -42,7 +42,8 @@ class Kernel:
 
 KERNELS: Dict[str, Kernel] = {
     # y2, psd, state_in, state_out, ju_in, ju_out, B, T, K, l0, coef,
-    # is_frames, v_frames, stream.  Built without FMA contraction so its
+    # is_frames, v_frames, stream; a NULL state_in starts a fresh scan, a
+    # NULL state_out keeps no state.  Built without FMA contraction so its
     # float32 arithmetic rounds as PyTorch's elementwise ops do: the VAD
     # thresholds turn one-ulp differences into different decisions.
     "imcra_scan": Kernel("imcra.cu", "imcra_scan_f32",
@@ -52,6 +53,11 @@ KERNELS: Dict[str, Kernel] = {
     # x, a, y, rows, n, stream
     "gammatone_cascade": Kernel("cascade.cu", "gammatone_cascade_f32",
                                 (_P, _P, _P, _I, _I, _P)),
+    # counts, seed, blocks, iters, stream: the card's check of the IMCRA
+    # kernel's fast division against IEEE division (same library).
+    "imcra_divide_check": Kernel("imcra.cu", "imcra_divide_check",
+                                 (_P, ctypes.c_ulonglong, _I, _I, _P),
+                                 ("-fmad=false",)),
 }
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -92,16 +98,18 @@ def _compile_cmd(k: Kernel, out: Path) -> list:
 
 def build(names: Iterable[str] | None = None) -> float:
     """Compile the named kernels (default: all) that are not built yet, one
-    `nvcc` per source, all started together.  Returns the wall seconds."""
+    `nvcc` per library (entry points of one source share it), all started
+    together.  Returns the wall seconds."""
     t0 = time.perf_counter()
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs, started = [], set()
     for name in names:
         k = KERNELS[name]
         out = _library_path(k)
-        if out.exists():
+        if out.exists() or out in started:
             continue
+        started.add(out)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         proc = subprocess.Popen(_compile_cmd(k, tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

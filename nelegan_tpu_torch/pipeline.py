@@ -30,7 +30,7 @@ from nelegan_tpu_torch.device import resolve_device
 from nelegan_tpu_torch.dsp.erb import band_energy, interp_band_gain
 from nelegan_tpu_torch.dsp.features import (featurize_noise, featurize_speech,
                                             resynthesize, rms)
-from nelegan_tpu_torch.dsp.imcra import imcra_scan
+from nelegan_tpu_torch.dsp.imcra import imcra_psd
 from nelegan_tpu_torch.dsp.stft import (hann_periodic, ola_norm_half_overlap,
                                         stft)
 
@@ -102,15 +102,16 @@ class BatchFeatures(NamedTuple):
 def featurize_batch(clean_padded, noise_padded, lengths,
                     p_power: float = 1.0 / 6.0,
                     cfg: ImcraConfig = ImcraConfig(), device=None,
-                    scan=imcra_scan) -> BatchFeatures:
+                    noise_psd=imcra_psd) -> BatchFeatures:
     """Batched featurization of host-pre-reflected utterances (numpy arrays or
     tensors) on `device`.
 
     Valid frames equal the reference's per-utterance centred STFT; padded
     tail frames are garbage and masked downstream.  int16 inputs are raw
-    PCM16 and are converted on the device (x / 32768).  `scan` is the IMCRA
-    scan to run: the kernel wrapper, or its plain version where a run is
-    held against it."""
+    PCM16 and are converted on the device (x / 32768).  `noise_psd` maps
+    |Y|^2 ``[B, T, K]`` and `cfg` to the IMCRA noise PSD of a fresh scan:
+    the kernel wrapper (one launch, no state kept), or the plain version
+    where a run is held against it."""
     dev = resolve_device(device)
     clean = torch.as_tensor(clean_padded, device=dev)
     noise = torch.as_tensor(noise_padded, device=dev)
@@ -125,7 +126,7 @@ def featurize_batch(clean_padded, noise_padded, lengths,
     cband = band_energy(cmag.transpose(-1, -2)) ** p_power
     y2 = nspec.real * nspec.real + nspec.imag * nspec.imag
     y2 = y2.to(torch.promote_types(y2.dtype, torch.float32))
-    npsd, _ = scan(y2.transpose(-1, -2).contiguous(), None, 0, cfg)  # [B, T, 257]
+    npsd = noise_psd(y2.transpose(-1, -2).contiguous(), cfg)  # [B, T, 257]
     nband = band_energy(torch.sqrt(npsd)) ** p_power
     return BatchFeatures(cband, nband, cmag, cspec.angle(),
                          valid_frames(lengths), lengths)

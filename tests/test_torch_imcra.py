@@ -76,3 +76,39 @@ def test_imcra_step_state_resumes_mid_utterance():
     for a, b in zip(st, st_whole):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert int(st.u[0]) == 3   # 55 main frames fired the tracker 3 times
+
+
+def test_imcra_stateless_scan_matches_plain_and_jax_f64():
+    """The state-less form (what featurize_batch calls): the same PSD as the
+    plain loop, no state, and the JAX lax.scan's PSD at f64."""
+    spec = _spec(9, t=80)
+    y2 = torch.from_numpy(np.abs(spec) ** 2).T[None].contiguous()
+    psd, st = imcra.imcra_scan(y2, keep_state=False)
+    assert st is None
+    want, _ = imcra.imcra_scan_plain(y2)
+    np.testing.assert_array_equal(psd.numpy(), want.numpy())
+    np.testing.assert_array_equal(imcra.imcra_psd(y2).numpy(), want.numpy())
+    ref = np.asarray(jax_imcra(spec))
+    np.testing.assert_allclose(psd[0].T.numpy(), ref, rtol=1e-6, atol=1e-14)
+
+
+def test_imcra_kernel_coefficients_cached_in_kernel_order():
+    """One float32 array per config, in the order csrc/imcra.cu's ImcraCoef
+    reads it, with the fresh start's lambda_init rounded as imcra_init
+    rounds it."""
+    import re
+    from pathlib import Path
+
+    from nelegan_tpu_torch.config import ImcraConfig
+    src = (Path(imcra.__file__).resolve().parents[1] / "csrc"
+           / "imcra.cu").read_text()
+    struct = re.search(r"struct ImcraCoef \{[^}]*?float ([^;]*);", src).group(1)
+    fields = [f.strip() for f in struct.split(",")]
+    assert tuple(fields) == imcra._KERNEL_COEFFICIENTS
+    n = int(re.search(r"kCoefficients = (\d+);", src).group(1))
+    cfg = ImcraConfig()
+    coef = imcra._kernel_coefficients(cfg)
+    assert coef.dtype == np.float32 and coef.shape == (n,)
+    assert imcra._kernel_coefficients(cfg) is coef
+    init = imcra.imcra_init(3, torch.float32, cfg)
+    assert coef[fields.index("lambda_init")] == init.lam[0].item()

@@ -70,11 +70,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_kernel_wrappers_refuse_non_cuda_accelerators():
     """A tensor off the CPU never takes the plain version: on CUDA the
     wrapper launches its kernel, on anything else it raises."""
-    from nelegan_tpu_torch.dsp.imcra import imcra_scan
+    from nelegan_tpu_torch.dsp.imcra import imcra_psd, imcra_scan
     from nelegan_tpu_torch.ops.cascade import gammatone_cascade
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="device"):
         imcra_scan(torch.empty(1, 4, 257, device=meta))
+    with pytest.raises(ValueError, match="device"):
+        imcra_scan(torch.empty(1, 4, 257, device=meta), keep_state=False)
+    with pytest.raises(ValueError, match="device"):
+        imcra_psd(torch.empty(1, 4, 257, device=meta))
     with pytest.raises(ValueError, match="device"):
         gammatone_cascade(torch.empty(2, 8, device=meta),
                           torch.empty(2, device=meta))
