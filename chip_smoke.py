@@ -44,14 +44,36 @@ Phases, in order; any failure raises:
      each window's replies for length and RMS.  Launch counts are zeroed just
      before the server starts and read after it stops: the IMCRA kernel
      must have run once per served batch, and no state was packed;
-  5. one JSON line of kernel records, the card line again, and last
-     `{"ok": true, "device": {...}}`.
+  5. training phase, the GAN training steps (`train/gan.py`) at full width
+     (the generator above and both spectral-norm discriminators), batch 8
+     with one shape-padding row masked by `row_valid`, bucket 36864 (145
+     frames), HASPI's score column gated off, deterministic cuDNN: the
+     batch is featurized with the IMCRA kernel and with the plain version
+     (features equal bit for bit); four G steps; `enhance_batch`, then
+     `eband_from_enhanced` (and `featurize_triple` of the same PCM16 rows,
+     equal bit for bit); six D steps on that fixed batch with targets in
+     [0.2, 0.9], whose losses must fall; `d_steps_scan` over four groups,
+     one of them skipped, equal to the three valid groups alone bit for
+     bit; training from kernel features equal to training from plain ones
+     bit for bit; exact resume through `save_checkpoint` and through
+     `AsyncSaver` with a G step in flight; three G and three D steps from
+     one state on the card against the CPU in float64 (bar F64_BAR on every
+     tensor and loss), and on the card in float32 against the CPU's float64
+     (bars F32_LOSS_BAR and F32_UPDATE_BAR), which the same float32 steps
+     with TF32 on, the control, must fail.  Launch counts are zeroed at
+     the start: the IMCRA kernel must have run once per batch featurized
+     with it.  Then G-step and D-step times (CUDA events), utterances/s and
+     one G step's device-busy share (torch.profiler);
+  6. one JSON line of kernel records (each with its training-path
+     launches), the card line again, and last `{"ok": true, "device": ...}`.
 """
 from __future__ import annotations
 
+import copy
 import json
 import multiprocessing
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -61,15 +83,17 @@ import torch
 
 from nelegan_tpu_torch import kernels, pipeline
 from nelegan_tpu_torch.cli.serve import EnhanceServer, enhance_remote
-from nelegan_tpu_torch.config import ImcraConfig
+from nelegan_tpu_torch.config import Config, ImcraConfig
 from nelegan_tpu_torch.device import disable_tf32
 from nelegan_tpu_torch.dsp import imcra
 from nelegan_tpu_torch.dsp.stft import stft
 from nelegan_tpu_torch.models.generator import Generator
 from nelegan_tpu_torch.ops import cascade
+from nelegan_tpu_torch.train import checkpoint, gan
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "goldens" / "features.npz"
+BUILD = REPO / "build"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32 FLOP/s
 # outside the tensor cores, at the full 700 W power limit.
@@ -97,6 +121,22 @@ LONG_BUCKET = 102400   # IMCRA check past the 9th tracker fire (slot roll)
 WINDOWS = 3            # throughput windows
 CLIENTS = 16           # closed-loop clients: two batches in flight
 PER_CLIENT = 200       # requests per client and window: 400 full batches
+TRAIN_G_STEPS = 4      # G steps of the training phase's main run
+TRAIN_D_STEPS = 6      # D steps on one fixed batch: the losses must fall
+PARITY_STEPS = 3       # card against CPU: this many G steps, then D steps
+INTEL_COLS = (1, 0, 1)  # HASPI's column gated off, as when it is not scored
+# Bars of the card against the CPU's float64 after PARITY_STEPS G and D
+# steps.  float64 on both sides: every tensor (max |a - b| over the
+# tensor's largest magnitude) and every loss within 1e-9, the reference
+# package's float64 bar.  float32 on the card: the losses within
+# F32_LOSS_BAR and each parameter's update within F32_UPDATE_BAR in norm
+# (Adam scales each step to about lr whatever the gradient's size, so an
+# element whose gradient float32 resolves poorly can take a step of another
+# size, or sign).  Each bar sits between float32's reading and that of the
+# control, the same float32 steps with TF32 on, which must fail both.
+F64_BAR = 1e-9
+F32_LOSS_BAR = 1e-5
+F32_UPDATE_BAR = 3e-3
 
 
 def card_line() -> str:
@@ -620,6 +660,11 @@ def throughput_window(server, step_s: list, group_s: list) -> dict:
     return win
 
 
+def plain_noise_psd(y2, cfg):
+    """The IMCRA noise PSD from the plain frame loop, on any device."""
+    return imcra.imcra_scan_plain(y2, None, 0, cfg)[0]
+
+
 def direct_pcm16(gen, reqs, dev):
     """Each bucket's requests as one batch of 8 (padded like the server's)
     through featurize_batch with the plain IMCRA and enhance_batch."""
@@ -635,10 +680,8 @@ def direct_pcm16(gen, reqs, dev):
         cp, lens = pipeline.reflect_pad_batch(cl, blen)
         npd, _ = pipeline.reflect_pad_batch(no, blen)
         with torch.inference_mode():
-            feats = pipeline.featurize_batch(
-                cp, npd, lens, device=dev,
-                noise_psd=lambda y2, cfg: imcra.imcra_scan_plain(y2, None, 0,
-                                                                 cfg)[0])
+            feats = pipeline.featurize_batch(cp, npd, lens, device=dev,
+                                             noise_psd=plain_noise_psd)
             wav, _, out_len = pipeline.enhance_batch(gen, feats, device=dev)
             q = pipeline.pcm16_quantize_i16(wav).cpu().numpy()
         for j, i in enumerate(idx):
@@ -646,14 +689,16 @@ def direct_pcm16(gen, reqs, dev):
     return out
 
 
-def profile_step(server, cp, npd, lens, batch_ms: float, reps: int = 5):
-    """Device time of one served batch by kernel, from torch.profiler, and
-    the share of the batch's host-clock time the device is busy."""
+def profile_step(step, batch_ms: float, reps: int = 5,
+                 label: str = "profile"):
+    """Device time of one call of `step` (a batch's work) by kernel, from
+    torch.profiler, and the share of the batch's host-clock time `batch_ms`
+    the device is busy; printed as one JSON line under `label`."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            server._step(cp, npd, lens)
+            step()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -669,7 +714,7 @@ def profile_step(server, cp, npd, lens, batch_ms: float, reps: int = 5):
            "busy_share": device_ms / batch_ms,
            "top": [{"name": k[:70], "ms": us / 1e3, "calls": n}
                    for us, n, k in rows[:10]]}
-    print(json.dumps({"profile": out}))
+    print(json.dumps({label: out}))
     return out
 
 
@@ -756,7 +801,7 @@ def serving_phase(dev) -> dict:
         server._step(cp, npd, lens)
         step.append(time.perf_counter() - t0)
     batch_ms = float(np.median(step)) * 1e3
-    prof = profile_step(server, cp, npd, lens, batch_ms)
+    prof = profile_step(lambda: server._step(cp, npd, lens), batch_ms)
     rates = [w["requests_per_s"] for w in windows]
     res = {"batch_ms": batch_ms, "profile": prof, "windows": windows,
            "requests_per_s_min": min(rates), "requests_per_s_max": max(rates),
@@ -768,6 +813,350 @@ def serving_phase(dev) -> dict:
           f"{min(rates):.2f}-{max(rates):.2f} requests/s over {WINDOWS} "
           f"windows of {CLIENTS * PER_CLIENT} requests from {CLIENTS} "
           f"closed-loop clients")
+    return res
+
+
+# --------------------------------------------------------------- training
+def states_equal(a: gan.TrainState, b: gan.TrainState) -> bool:
+    """Bit-for-bit equality of two train states, Adam states included."""
+    def walk(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(walk(x[k], y[k]) for k in x)
+        return x == y
+    return walk(a.state_dict(), b.state_dict())
+
+
+def _flat_tensors(state: gan.TrainState) -> dict:
+    sd = state.state_dict()
+    out = {f"{m}.{k}": v for m in ("gen", "d", "dq") for k, v in sd[m].items()}
+    for m in ("gen_opt", "d_opt", "dq_opt"):
+        for i, st in sd[m]["state"].items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[f"{m}.{i}.{k}"] = st[k]
+    return out
+
+
+def state_errors(got: gan.TrainState, want: gan.TrainState,
+                 origin: gan.TrainState) -> dict:
+    """`got` against `want` (any devices, in float64): `tensor_rel`, the
+    largest over every tensor (parameters, u and v, Adam moments) of
+    max|a - b| / max|b|; `update_rel`, the largest over the parameters of
+    ||a - b|| / ||b - origin||, the error of the update the steps made."""
+    fa, fw, fo = (_flat_tensors(s) for s in (got, want, origin))
+    tensor_rel = update_rel = 0.0
+    for k, w in fw.items():
+        a, w = fa[k].double().cpu(), w.double().cpu()
+        tensor_rel = max(tensor_rel, float((a - w).abs().max()
+                                           / w.abs().max().clamp_min(1e-300)))
+    for m in ("gen", "d", "dq"):
+        for name, _ in getattr(want, m).named_parameters():
+            k = f"{m}.{name}"
+            a, w, o = (f[k].double().cpu() for f in (fa, fw, fo))
+            update_rel = max(update_rel, float(
+                (a - w).norm() / (w - o).norm().clamp_min(1e-300)))
+    return {"tensor_rel": tensor_rel, "update_rel": update_rel}
+
+
+def train_batch():
+    """Seven requests of the 36864 bucket cut from the golden speech and an
+    eighth row repeating the seventh as shape padding (row_valid 0), as the
+    training loop pads a ragged batch; reflect-padded, with lengths."""
+    reqs = build_requests()[:7]
+    reqs.append(reqs[-1])
+    cp, lens = pipeline.reflect_pad_batch([r[0] for r in reqs], BUCKET)
+    npd, _ = pipeline.reflect_pad_batch([r[1] for r in reqs], BUCKET)
+    return cp, npd, lens, np.array([1.0] * 7 + [0.0], np.float32)
+
+
+def parity_run(state: gan.TrainState, cfg, bands, eband, targets, row_valid):
+    """PARITY_STEPS G steps, then PARITY_STEPS D steps, on `state` in its
+    own device and dtype; returns the losses as floats."""
+    cb, nb, fr = bands
+    losses = []
+    for _ in range(PARITY_STEPS):
+        _, loss = gan.g_step_bands(state, cb, nb, fr, cfg, INTEL_COLS, None,
+                                   row_valid)
+        losses.append(float(loss))
+    for tg, tq in targets[:PARITY_STEPS]:
+        _, ld, lq = gan.d_step_bands(state, eband, nb, cb, fr, tg, tq, cfg,
+                                     intel_cols=INTEL_COLS,
+                                     row_valid=row_valid)
+        losses += [float(ld), float(lq)]
+    return losses
+
+
+def short_run(state, feats, cfg, targets, row_valid, dev):
+    """Two G steps, enhancement, the enhanced rows' bands, two D steps: the
+    loop's phases 2 and 7 in small."""
+    for _ in range(2):
+        gan.g_step(state, feats, cfg, INTEL_COLS, None, row_valid)
+    with torch.no_grad():
+        wav, _, out_len = pipeline.enhance_batch(state.gen, feats, device=dev)
+    eband = gan.eband_from_enhanced(wav, out_len, cfg, device=dev)
+    for tg, tq in targets[:2]:
+        gan.d_step_bands(state, eband, feats.noise_band, feats.clean_band,
+                         feats.frames, tg, tq, cfg, intel_cols=INTEL_COLS,
+                         row_valid=row_valid)
+    return state
+
+
+def resume_checks(state: gan.TrainState, cfg, feats, eband, targets,
+                  row_valid, dev) -> None:
+    """Exact resume through save_checkpoint and through AsyncSaver (a G step
+    taken while the save is in flight): the loaded state equals the saved
+    one, and one more G and D step from each are equal, bit for bit."""
+    tg, tq = targets[0]
+
+    def one_more(st):
+        _, lg = gan.g_step(st, feats, cfg, INTEL_COLS, None, row_valid)
+        _, ld, lq = gan.d_step_bands(st, eband, feats.noise_band,
+                                     feats.clean_band, feats.frames, tg, tq,
+                                     cfg, intel_cols=INTEL_COLS,
+                                     row_valid=row_valid)
+        return [float(lg), float(ld), float(lq)]
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    rng = torch.Generator().manual_seed(11)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        live = copy.deepcopy(state)
+        checkpoint.save_checkpoint(f"{tmp}/sync", 1, live, rng)
+        loaded, rng2, epoch, _ = checkpoint.load_checkpoint(
+            f"{tmp}/sync", gan.init_train_state(cfg, 1, dev))
+        if not (epoch == 1 and states_equal(loaded, live)
+                and torch.equal(rng2.get_state(), rng.get_state())):
+            raise AssertionError("checkpoint: loaded state != saved state")
+        if one_more(loaded) != one_more(live) or not states_equal(loaded,
+                                                                  live):
+            raise AssertionError("checkpoint: resumed step != live step")
+
+        saver = checkpoint.AsyncSaver()
+        before = copy.deepcopy(live)
+        saver.save_async(f"{tmp}/async", 2, live, rng)
+        gan.g_step(live, feats, cfg, INTEL_COLS, None, row_valid)  # in flight
+        saver.wait()
+        loaded, _, epoch, _ = checkpoint.load_checkpoint(
+            f"{tmp}/async", gan.init_train_state(cfg, 2, dev))
+        if not (epoch == 2 and states_equal(loaded, before)):
+            raise AssertionError("AsyncSaver: loaded state != state at save")
+        if one_more(loaded) != one_more(before) or not states_equal(loaded,
+                                                                    before):
+            raise AssertionError("AsyncSaver: resumed step != live step")
+    print("exact resume: saved, loaded and stepped states bit-equal to the "
+          "live ones (save_checkpoint; AsyncSaver with a G step in flight)")
+
+
+def training_phase(dev) -> dict:
+    """The GAN training steps at full width, batch 8, bucket 36864, as
+    train/loop.py's phases 2 (G steps) and 7 (D steps) drive them; every
+    check raises.  Launch counts are zeroed at the start and read at the
+    end: the IMCRA kernel runs once per batch featurized with it."""
+    cfg = Config()
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    # bit-for-bit checks need deterministic convolution backward passes
+    cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        checks, timing_args = training_checks(dev, cfg)
+        res = dict(checks, **time_training(cfg, *timing_args))
+        res["phase_s"] = time.perf_counter() - t0
+    finally:
+        cudnn.deterministic = deterministic
+    print(f"training phase: {res['phase_s']:.1f} s")
+    return res
+
+
+def training_checks(dev, cfg):
+    """Every check of the training phase; returns (results, the state and
+    inputs `time_training` times)."""
+    t_phase = time.perf_counter()
+    cp, npd, lens, row_valid = train_batch()
+    rng = np.random.RandomState(7)
+    targets = [(rng.uniform(0.2, 0.9, (8, 3)).astype(np.float32),
+                rng.uniform(0.2, 0.9, (8, 2)).astype(np.float32))
+               for _ in range(max(TRAIN_D_STEPS, PARITY_STEPS))]
+
+    kernels.reset_launches()
+    featurized = 0
+    with torch.no_grad():
+        feats = pipeline.featurize_batch(cp, npd, lens, cfg.train.p_power,
+                                         cfg.imcra, device=dev)
+        feats_plain = pipeline.featurize_batch(
+            cp, npd, lens, cfg.train.p_power, cfg.imcra, device=dev,
+            noise_psd=plain_noise_psd)
+    cb, nb, fr = gan.featurize_bands(cp, npd, lens, cfg, device=dev)
+    featurized += 2
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in
+               ((feats.clean_band, feats_plain.clean_band),
+                (feats.noise_band, feats_plain.noise_band),
+                (feats.clean_band, cb), (feats.noise_band, nb),
+                (feats.frames, fr))):
+        raise AssertionError("training features: IMCRA kernel != plain, or "
+                             "featurize_bands != featurize_batch")
+
+    # the main run: G steps with a padding row and a gated column, the
+    # enhanced batch's bands, D steps on that fixed batch, a scan of groups
+    state0 = gan.init_train_state(cfg, 0, dev)
+    state = copy.deepcopy(state0)
+    g_losses = [float(gan.g_step(state, feats, cfg, INTEL_COLS, None,
+                                 row_valid)[1])
+                for _ in range(TRAIN_G_STEPS)]
+    with torch.no_grad():
+        wav, _, out_len = pipeline.enhance_batch(state.gen, feats, device=dev)
+    eband = gan.eband_from_enhanced(wav, out_len, cfg, device=dev)
+    enh_np = pipeline.pcm16_quantize(wav).cpu().numpy()
+    enh_padded, _ = pipeline.reflect_pad_batch(
+        [enh_np[i, :int(n)] for i, n in enumerate(out_len.cpu())], wav.shape[1])
+    img3, img2, fr3 = gan.featurize_triple(enh_padded, npd, cp, lens, cfg,
+                                           device=dev)
+    featurized += 1
+    want3, want2 = gan.d_images(eband, nb, cb, fr)
+    if not (torch.equal(img3, want3) and torch.equal(img2, want2)
+            and torch.equal(fr3, fr)):
+        raise AssertionError("featurize_triple != d_images of "
+                             "eband_from_enhanced")
+    d_losses = []
+    for tg, tq in [targets[0]] * TRAIN_D_STEPS:
+        _, ld, lq = gan.d_step_bands(state, eband, nb, cb, fr, tg, tq, cfg,
+                                     intel_cols=INTEL_COLS,
+                                     row_valid=row_valid)
+        d_losses.append([float(ld), float(lq)])
+    if not all(d_losses[-1][h] < d_losses[0][h] for h in (0, 1)):
+        raise AssertionError(f"D losses on a fixed batch did not fall: "
+                             f"{d_losses}")
+    print(f"training main run: G losses {g_losses}; D losses (intel, "
+          f"quality) on one fixed batch {d_losses}")
+
+    # d_steps_scan over 4 groups, the third shape padding: equal to the
+    # three valid groups alone, bit for bit
+    groups = 4
+    flat = [torch.cat([x] * groups) for x in (eband, cb, nb, fr)]
+    tgs = np.stack([t[0] for t in targets[:groups]])
+    tqs = np.stack([t[1] for t in targets[:groups]])
+    rvs = np.stack([row_valid] * groups)
+    valid = np.array([True, True, False, True])
+    scanned, losses = gan.d_steps_scan(
+        copy.deepcopy(state), *flat, tgs, tqs, rvs, valid, cfg,
+        intel_cols=INTEL_COLS)
+    keep = [0, 1, 3]
+    alone, losses3 = gan.d_steps_scan(
+        copy.deepcopy(state), *(torch.cat([x] * 3) for x in
+                                (eband, cb, nb, fr)),
+        tgs[keep], tqs[keep], rvs[keep], [True] * 3, cfg,
+        intel_cols=INTEL_COLS)
+    if not (states_equal(scanned, alone) and scanned.step_d == state.step_d + 3
+            and torch.equal(losses[keep], losses3)
+            and not losses[2].any()):
+        raise AssertionError("d_steps_scan: a skipped group changed the state")
+    print(f"d_steps_scan over {groups} groups, group 2 skipped: state and "
+          f"losses bit-equal to the 3 valid groups alone; losses "
+          f"{losses.tolist()}")
+
+    # training with the IMCRA kernel's features = with the plain version's
+    runs = [short_run(copy.deepcopy(state0), f, cfg, targets, row_valid, dev)
+            for f in (feats, feats_plain)]
+    if not states_equal(*runs):
+        raise AssertionError("training with the IMCRA kernel != with the "
+                             "plain IMCRA")
+    print("training from IMCRA-kernel features = from plain-IMCRA features, "
+          "bit for bit (2 G steps, enhancement, 2 D steps)")
+
+    resume_checks(state, cfg, feats, eband, targets, row_valid, dev)
+
+    # the card against the CPU from state0: float64 on both sides, then
+    # float32 on the card against the CPU's float64
+    launches = dict(kernels.launches)
+    t0 = time.perf_counter()
+    bands64 = [x.double().cpu() if x.is_floating_point() else x.cpu()
+               for x in (cb, nb, fr)]
+    eband64 = eband.double().cpu()
+    cpu64 = gan.init_train_state(cfg, 0, "cpu", dtype=torch.float64)
+    cpu64.load_state_dict(state0.state_dict())
+    origin = copy.deepcopy(cpu64)
+    cpu_losses = parity_run(cpu64, cfg, bands64, eband64, targets, row_valid)
+    cpu_s = time.perf_counter() - t0
+    parity = {"cpu_float64_seconds": cpu_s}
+    # float32 with TF32 on is the control: a float32 step of lower
+    # precision, which the float32 bars must fail
+    for name, dtype, tf32 in (("float64", torch.float64, False),
+                              ("float32", torch.float32, False),
+                              ("float32_tf32", torch.float32, True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        st = gan.init_train_state(cfg, 0, dev, dtype=dtype)
+        st.load_state_dict(state0.state_dict())
+        got = parity_run(st, cfg, [x.to(dev) for x in bands64],
+                         eband64.to(dev), targets, row_valid)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, cpu_losses))
+        parity[name] = dict(state_errors(st, cpu64, origin),
+                            loss_rel=loss_rel)
+    disable_tf32()
+    print(f"card vs CPU float64 ({PARITY_STEPS} G steps, {PARITY_STEPS} D "
+          f"steps, from one state): {parity}")
+    f64, f32, ctl = (parity[k] for k in ("float64", "float32",
+                                         "float32_tf32"))
+    if not (max(f64.values()) <= F64_BAR and f32["loss_rel"] <= F32_LOSS_BAR
+            and f32["update_rel"] <= F32_UPDATE_BAR):
+        raise AssertionError(f"card vs CPU beyond the bars: {parity}")
+    if not (ctl["loss_rel"] > F32_LOSS_BAR
+            and ctl["update_rel"] > F32_UPDATE_BAR):
+        raise AssertionError(f"the float32 bars pass the TF32 control: "
+                             f"{parity}")
+
+    checks = {"g_losses": g_losses, "d_losses": d_losses,
+              "scan_losses": losses.tolist(), "parity": parity,
+              "launches": launches,
+              "featurized_batches": featurized,
+              "checks_s": time.perf_counter() - t_phase}
+    if launches["imcra_scan"] != featurized:
+        raise AssertionError(f"imcra_scan launched {launches['imcra_scan']} "
+                             f"times for {featurized} featurized batches")
+    return checks, (state, feats, eband, targets[0], row_valid)
+
+
+def time_training(cfg, state, feats, eband, targets, row_valid) -> dict:
+    """G-step and D-step times at batch 8 (CUDA events, median of 5 bursts
+    of 10 steps), and one G step's device-busy share from torch.profiler,
+    with deterministic convolutions off, as a training run uses them."""
+    torch.backends.cudnn.deterministic = False
+    timed = copy.deepcopy(state)
+    tg, tq = targets
+
+    def g_step():
+        return gan.g_step(timed, feats, cfg, INTEL_COLS, None, row_valid)
+
+    def d_step():
+        return gan.d_step_bands(timed, eband, feats.noise_band,
+                                feats.clean_band, feats.frames, tg, tq, cfg,
+                                intel_cols=INTEL_COLS, row_valid=row_valid)
+
+    g_ms = cuda_ms(g_step, calls=10)
+    d_ms = cuda_ms(d_step, calls=10)
+    wall = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        g_step()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    g_wall_ms = float(np.median(wall)) * 1e3
+    prof = profile_step(g_step, g_wall_ms, label="g_step_profile")
+    res = {"g_step_ms": g_ms, "d_step_ms": d_ms, "g_step_wall_ms": g_wall_ms,
+           "g_utterances_per_s": 8 / g_ms * 1e3,
+           "d_utterances_per_s": 8 / d_ms * 1e3,
+           "g_device_ms": prof["device_ms_per_batch"],
+           "g_device_ops": prof["device_ops_per_batch"],
+           "g_busy_share": prof["busy_share"]}
+    print(f"training steps at batch 8, bucket {BUCKET} (T = 145), float32, "
+          f"TF32 off: G step {g_ms:.3f} ms, D step {d_ms:.3f} ms (CUDA "
+          f"events, median of 5 bursts of 10); "
+          f"{res['g_utterances_per_s']:.1f} and "
+          f"{res['d_utterances_per_s']:.1f} utterances/s; one G step "
+          f"{g_wall_ms:.3f} ms host clock, device busy "
+          f"{prof['busy_share']:.3f} ({prof['device_ms_per_batch']:.3f} ms, "
+          f"{prof['device_ops_per_batch']:.0f} device ops)")
     return res
 
 
@@ -784,10 +1173,14 @@ def main() -> None:
 
     records = [imcra_phase(dev), cascade_phase(dev)]
     serving = serving_phase(dev)
+    training = training_phase(dev)
     for rec in records:
         rec["launches"] = serving["launches"][rec["name"]]
+        rec["training_launches"] = training["launches"][rec["name"]]
+    records[0]["training_featurized_batches"] = training["featurized_batches"]
     print(json.dumps({"serving": {k: v for k, v in serving.items()
                                   if k not in ("launches", "profile")}}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ the same path there:
   device.py   device=None -> CUDA (raises without a GPU); TF32 switch
   dsp/        STFT, ERB band matrices, IMCRA (plain loop + CUDA kernel),
               single-utterance features and resynthesis
-  models/     the generator (reference state-dict keys) and weight import
+  models/     the generator and spectral-norm discriminators (reference
+              state-dict keys), weight and train-state import
   ops/        gammatone one-pole cascade (plain + CUDA kernel)
   pipeline.py batched featurize -> generator -> resynthesis
+  train/      the GAN training steps, exact-resume checkpoints, replay
   cli/serve   the dynamic-batching enhancement server
   kernels/    nvcc build, ctypes binding and launch counts of csrc/*.cu
 

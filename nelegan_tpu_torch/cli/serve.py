@@ -28,8 +28,8 @@ Protocol (TCP, length-prefixed, little-endian, 16 kHz float32 PCM):
 
 Weights come from a reference `chkpt_GD.pt` (its 'enhance-model' state
 dict, loaded directly).  The reference package's native msgpack checkpoints
-need its train/checkpoint.py, which is ported with the training slice; until
-then they cannot be served from here.
+cannot be read by the port yet; its own training checkpoints
+(`train/checkpoint.py`) are in another format.
 """
 from __future__ import annotations
 

@@ -66,7 +66,7 @@ class ImcraConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Generator hyper-parameters (reference: model.py)."""
+    """Generator / discriminator hyper-parameters (reference: model.py)."""
     n_bands: int = 64
     gen_hidden: int = 256
     gen_blocks: int = 6
@@ -79,8 +79,8 @@ class ModelConfig:
     disc_kernels: Tuple[int, ...] = (1, 3, 5, 7, 9)
     n_intel_scores: int = 3           # SIIB, HASPI, ESTOI
     n_quality_scores: int = 2         # PESQ, ViSQOL
-    # Activation dtype of the generator trunk.  Only "float32" is ported;
-    # the bfloat16 policy raises (models/generator.py).
+    # Activation dtype of the generator and discriminator trunks.  Only
+    # "float32" is ported; the bfloat16 policy raises (models/).
     compute_dtype: str = "float32"
 
 
@@ -112,3 +112,29 @@ class Config:
     imcra: ImcraConfig = dataclasses.field(default_factory=ImcraConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+
+def config_to_dict(cfg: Config) -> dict:
+    """JSON-serialisable dict of the config tree (tuples become lists), kept
+    beside a checkpoint so a restore rebuilds the model's exact shape."""
+    return dataclasses.asdict(cfg)
+
+
+def config_from_dict(d: dict) -> Config:
+    """Inverse of `config_to_dict`.  Unknown sections and keys (a newer
+    writer, or the reference package's `calib` and `parallel` sections) are
+    ignored; missing keys keep their defaults."""
+    def build(cls, sub):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if sub is None or f.name not in sub:
+                continue
+            v = sub[f.name]
+            kw[f.name] = tuple(v) if isinstance(v, list) else v
+        return cls(**kw)
+
+    return Config(stft=build(StftConfig, d.get("stft")),
+                  band=build(BandConfig, d.get("band")),
+                  imcra=build(ImcraConfig, d.get("imcra")),
+                  model=build(ModelConfig, d.get("model")),
+                  train=build(TrainConfig, d.get("train")))

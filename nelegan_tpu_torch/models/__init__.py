@@ -1,1 +1,1 @@
-"""Generator and weight import."""
+"""Generator, spectral-norm discriminators and weight import."""

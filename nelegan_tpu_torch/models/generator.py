@@ -84,12 +84,49 @@ class Generator(nn.Module):
         outs = [hidden] * (n_blocks - 1) + [n_bands]
         ks = [kernel_first] + [kernel_mid] * (n_blocks - 2) + [kernel_last]
         gains = [5.0 / 3.0] * (n_blocks - 1) + [1.0]
+        self._gains = gains
         self.convolutions = nn.ModuleList(
             nn.Sequential(CausalConv(i, o, k, g), nn.Identity(),
                           CumulativeLayerNorm(o), nn.LeakyReLU(leaky_slope))
             for i, o, k, g in zip(ins, outs, ks, gains))
         self.fc1 = nn.Linear(n_bands, n_bands)
         self.fc2 = nn.Linear(n_bands, n_bands)
+
+    @classmethod
+    def from_config(cls, model_cfg) -> "Generator":
+        return cls(hidden=model_cfg.gen_hidden, n_bands=model_cfg.n_bands,
+                   n_blocks=model_cfg.gen_blocks,
+                   leaky_slope=model_cfg.leaky_slope,
+                   mask_bound=model_cfg.mask_bound,
+                   kernel_first=model_cfg.gen_kernel_first,
+                   kernel_mid=model_cfg.gen_kernel_mid,
+                   kernel_last=model_cfg.gen_kernel_last,
+                   compute_dtype=model_cfg.compute_dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """The reference package's init, drawn on the CPU from `generator`:
+        xavier-uniform conv weights with the block's gain, lecun-normal
+        (truncated at two deviations) dense weights, zero biases, unit cLN
+        gains (`nelegan_tpu/models/generator.py:68-78`; flax's defaults)."""
+        def draw(p, fill):
+            cpu = torch.empty(p.shape, dtype=torch.float32, device="cpu")
+            fill(cpu)
+            p.copy_(cpu)
+
+        for block, gain in zip(self.convolutions, self._gains):
+            conv = block[0].conv
+            draw(conv.weight, lambda w: nn.init.xavier_uniform_(
+                w, gain=gain, generator=generator))
+            conv.bias.zero_()
+            block[2].gain0.fill_(1.0)
+            block[2].bias0.zero_()
+        for fc in (self.fc1, self.fc2):
+            # flax's truncated normal keeps unit variance after truncation
+            std = (1.0 / fc.in_features) ** 0.5 / 0.87962566103423978
+            draw(fc.weight, lambda w: nn.init.trunc_normal_(
+                w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator))
+            fc.bias.zero_()
 
     def forward(self, clean: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         x = torch.cat([clean, noise], dim=-1).transpose(1, 2)     # [B, 128, T]

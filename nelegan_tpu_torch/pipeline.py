@@ -90,6 +90,23 @@ def reflect_pad_batch(wavs: list, n_max: int | None = None):
     return out, lens
 
 
+def reflect_pad_device(wav: torch.Tensor, lengths) -> torch.Tensor:
+    """`reflect_pad_batch` for rows already on the device.
+
+    wav [B, n] (row i valid through lengths[i] >= 258 samples) ->
+    [B, n + 512]: each row reflected by 256 samples at its own two edges,
+    zeros past lengths[i] + 512, as np.pad(w, (256, 256), 'reflect') placed
+    at the buffer head.  One gather over computed indices."""
+    n = wav.shape[-1]
+    lengths = torch.as_tensor(lengths, device=wav.device)[:, None]
+    j = torch.arange(n + N_FFT, device=wav.device)
+    head = torch.abs(j - HOP)[None, :]                  # head reflection
+    last = torch.clamp_min(lengths - 1, 1)
+    idx = torch.clamp(last - torch.abs(last - head), 0, n - 1)  # tail
+    out = torch.gather(wav, 1, idx)
+    return torch.where(j[None, :] < lengths + N_FFT, out, 0.0)
+
+
 class BatchFeatures(NamedTuple):
     clean_band: torch.Tensor   # [B, T, 64]
     noise_band: torch.Tensor   # [B, T, 64]

@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,6 +57,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from nelegan_tpu_torch.cli import serve
     from nelegan_tpu_torch.device import resolve_device
     from nelegan_tpu_torch.models.generator import Generator
+    from nelegan_tpu_torch.train import gan
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -64,6 +66,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
         serve.EnhanceServer(Generator(hidden=8, n_blocks=3))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--torch-checkpoint", "absent.pt"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gan.init_train_state()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gan.featurize_bands(np.zeros((1, 4608), np.float32),
+                            np.zeros((1, 4608), np.float32), [4096])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
