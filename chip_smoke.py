@@ -64,12 +64,35 @@ Phases, in order; any failure raises:
      the start: the IMCRA kernel must have run once per batch featurized
      with it.  Then G-step and D-step times (CUDA events), utterances/s and
      one G step's device-busy share (torch.profiler);
-  6. one JSON line of kernel records (each with its training-path
-     launches), the card line again, and last `{"ok": true, "device": ...}`.
+  6. streaming phase (`streaming.py`, `cli/stream.py`) at the same full
+     width, float32: a stream of 102500 samples (401 frames: the IMCRA
+     warm-up, 25 tracker fires, so the slot store rolls) cut from the
+     golden speech and noise, fed in pieces of 300, 1000, 7, 4096 and 53
+     samples.  At 1, 8 and 16 frames a chunk, the PSD from the IMCRA
+     kernel's stateful launches (one per chunk step, counted from 0 before
+     each run) equals one fresh launch over the same frames bit for bit;
+     the stream through the plain IMCRA on the card gives the same PSDs and
+     output bit for bit; the output is within STREAM_BAR of the offline
+     causal path; 256 * (n // 256) samples come out, the first once 512 are
+     in; 8 batched streams equal 8 single ones (IMCRA bit for bit, one
+     launch a batched step).  Then step times at 1 and 8 frames, the device
+     busy share of a step, frames/s for 8 and 64 concurrent streams, and the
+     CLI's real-time factor at 16 and 128 ms chunks;
+  7. infer phase (`cli/infer.py`, `data/`): 24 utterances in three length
+     buckets, written as PCM16 wavs, enhanced from a `.ptstate` checkpoint of
+     the seeded generator; every file equals `enhance_batch` on the same
+     batches bit for bit and the plain-IMCRA path within 1 LSB; IMCRA runs
+     once per batch and once for one `mmse_lsa_enhance` call (its own
+     configuration), whose PSD equals the plain loop's bit for bit;
+     utterances/s with wav I/O and device work apart;
+  8. one JSON line per phase, one of kernel records (each with its launches
+     on the serving, training, streaming and infer paths), the card line
+     again, and last `{"ok": true, "device": ...}`.
 """
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import multiprocessing
 import subprocess
@@ -81,11 +104,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from nelegan_tpu_torch import kernels, pipeline
+from nelegan_tpu_torch import kernels, pipeline, streaming
+from nelegan_tpu_torch.cli import infer, stream
 from nelegan_tpu_torch.cli.serve import EnhanceServer, enhance_remote
-from nelegan_tpu_torch.config import Config, ImcraConfig
+from nelegan_tpu_torch.config import Config, ImcraConfig, config_to_dict
+from nelegan_tpu_torch.data.pipeline import (BucketedLoader, CorpusIndex,
+                                             get_filepaths)
+from nelegan_tpu_torch.data.wavio import read_wav, write_wav_pcm16
 from nelegan_tpu_torch.device import disable_tf32
-from nelegan_tpu_torch.dsp import imcra
+from nelegan_tpu_torch.dsp import imcra, mmse
 from nelegan_tpu_torch.dsp.stft import stft
 from nelegan_tpu_torch.models.generator import Generator
 from nelegan_tpu_torch.ops import cascade
@@ -137,6 +164,17 @@ INTEL_COLS = (1, 0, 1)  # HASPI's column gated off, as when it is not scored
 F64_BAR = 1e-9
 F32_LOSS_BAR = 1e-5
 F32_UPDATE_BAR = 3e-3
+# Streaming phase: a stream of 401 frames (warm-up, 25 tracker fires, so
+# the slot store rolls), fed in irregular pieces; the stream against the
+# offline causal path within STREAM_BAR (fixed in PERF.md before the first
+# run: the reference package's float32 bar for this comparison).
+STREAM_SAMPLES = 102500
+STREAM_SIZES = (300, 1000, 7, 4096, 53)
+STREAM_BAR = 1e-5
+STREAM_BATCHES = (8, 64)    # concurrent streams timed
+# Infer phase: eight utterances in each of three length buckets.
+INFER_BUCKETS = ((12289, 16384), (20481, 24576), (32769, 36864))
+INFER_PER_BUCKET = 8
 
 
 def card_line() -> str:
@@ -1160,6 +1198,425 @@ def time_training(cfg, state, feats, eband, targets, row_valid) -> dict:
     return res
 
 
+# -------------------------------------------------------------- streaming
+class PsdRecorder:
+    """A streaming `noise_psd` hook: runs `fn` and keeps the |Y|^2 each
+    chunk step passed and the PSD it got back."""
+
+    def __init__(self, fn):
+        self.fn, self.y2, self.psd = fn, [], []
+
+    def __call__(self, y2, rows, ju, l0, cfg):
+        psd, rows, ju = self.fn(y2, rows, ju, l0, cfg)
+        self.y2.append(y2)
+        self.psd.append(psd)
+        return psd, rows, ju
+
+
+def stream_signal(n: int = STREAM_SAMPLES, seed: int = 0):
+    clean, noise = speech_signals()
+    rng = np.random.RandomState(seed)
+    return (crop(clean, n, int(rng.randint(0, clean.size)), 0.8),
+            crop(noise, n, int(rng.randint(0, noise.size)), 1.3))
+
+
+def run_stream(gen, clean, noise, chunk_frames, dev, noise_psd,
+               sizes=STREAM_SIZES):
+    """The whole stream through a StreamingEnhancer fed in `sizes` pieces,
+    then flushed -> (output, enhancer)."""
+    se = streaming.StreamingEnhancer(gen, chunk_frames=chunk_frames,
+                                     device=dev, noise_psd=noise_psd)
+    outs, i, k = [], 0, 0
+    while i < clean.size:
+        n = sizes[k % len(sizes)]
+        k += 1
+        outs.append(se.process(clean[i:i + n], noise[i:i + n]))
+        i += n
+    outs.append(se.flush())
+    return np.concatenate(outs), se
+
+
+def seeded_state(cfg, dev) -> gan.TrainState:
+    """A train state whose generator is `seeded_generator(0)`."""
+    return gan.init_train_state(cfg, 0, dev,
+                                gen_state=seeded_generator(0).state_dict())
+
+
+def save_seeded_checkpoint(directory: str, cfg, dev) -> str:
+    checkpoint.save_checkpoint(directory, 1, seeded_state(cfg, dev),
+                               torch.Generator().manual_seed(0),
+                               extra={"config": config_to_dict(cfg)})
+    return directory
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock time of `fn` followed by a device synchronise."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def stream_frames(clean, noise, b: int, f: int, step: int):
+    """[b, f, 512] frames of b streams at chunk step `step` (stream i
+    starts 7 * i hops, modulo 300, into the signals), as clean and noise
+    tensors."""
+    def one(x, i):
+        o = ((7 * i) % 300 + step * f) * 256
+        return np.stack([x[o + j * 256:o + j * 256 + 512] for j in range(f)])
+    return tuple(torch.from_numpy(np.stack([one(x, i) for i in range(b)]))
+                 for x in (clean, noise))
+
+
+def streaming_checks(gen, dev, cfg) -> dict:
+    clean, noise = stream_signal()
+    n_frames = 1 + clean.size // 256
+    res = {"samples": clean.size, "frames": n_frames}
+
+    # 1. the kernel's stateful launches, chunk by chunk, = one fresh launch
+    runs = {}
+    for chunk in (8, 1, 16):
+        rec = PsdRecorder(streaming.carried_noise_psd)
+        kernels.reset_launches()
+        out, se = run_stream(gen, clean, noise, chunk, dev, rec)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        launches = counts["imcra_scan"]
+        y2, psd = torch.cat(rec.y2, 1), torch.cat(rec.psd, 1)
+        fresh = imcra.imcra_psd(y2, cfg.imcra)      # not a stream launch
+        fires = int(se.state.imcra_ju[0, 1])
+        if not (launches == se.steps == len(rec.psd) and launches > 0):
+            raise AssertionError(f"stream at {chunk} frames: {launches} IMCRA "
+                                 f"launches for {se.steps} steps")
+        if not (y2.shape[1] == n_frames and fires > cfg.imcra.u_buffers):
+            raise AssertionError(f"stream: {y2.shape[1]} frames, {fires} "
+                                 f"tracker fires")
+        if not torch.equal(psd, fresh):
+            raise AssertionError(f"stream at {chunk} frames: chunked IMCRA "
+                                 f"launches != one fresh launch")
+        runs[chunk] = (out, psd, y2, se)
+        res[f"chunk{chunk}"] = {"steps": se.steps, "launches": launches,
+                                "tracker_fires": fires}
+        if chunk == 8:
+            res["launches_all"] = counts
+    out, psd, y2, se = runs[8]
+    res["launches"] = res["chunk8"]["launches"]
+    res["steps"] = se.steps
+    # the generator's float32 sums round with the chunk's length
+    res["chunk_max_diff"] = max(float(np.abs(runs[c][0] - out).max())
+                                for c in (1, 16))
+    if res["chunk_max_diff"] > STREAM_BAR:
+        raise AssertionError(f"stream output depends on the chunk size: "
+                             f"{res['chunk_max_diff']}")
+    print(f"stream of {clean.size} samples ({n_frames} frames) in pieces "
+          f"{list(STREAM_SIZES)}: IMCRA PSD from the chunked stateful "
+          f"launches = one fresh launch, bit for bit, at 1, 8 and 16 frames "
+          f"a chunk ({res['chunk1']['launches']}, {res['chunk8']['launches']}"
+          f", {res['chunk16']['launches']} launches for as many steps; "
+          f"{res['chunk8']['tracker_fires']} tracker fires); outputs at 1 and "
+          f"16 frames within {res['chunk_max_diff']:.3e} of those at 8")
+
+    # 2. the same stream through the plain IMCRA on the card
+    rec = PsdRecorder(streaming.carried_noise_psd_plain)
+    out_p, _ = run_stream(gen, clean, noise, 8, dev, rec)
+    if not (torch.equal(torch.cat(rec.psd, 1), psd)
+            and np.array_equal(out_p, out)):
+        raise AssertionError("stream through the plain IMCRA != kernel")
+    print("stream through the plain IMCRA on the card: PSDs and output "
+          "bit-equal to the kernel's")
+
+    # 3. against the offline causal path on the card
+    with torch.inference_mode():
+        ref = streaming.enhance_offline_causal(gen, clean, noise,
+                                               cfg.train.p_power, cfg.imcra,
+                                               dev).cpu().numpy()
+        spec = stft(torch.from_numpy(noise).to(dev))
+        y2_off = (spec.real * spec.real + spec.imag * spec.imag).T[None]
+    res["offline_max_dev"] = float(np.abs(out - ref).max())
+    res["offline_peak"] = float(np.abs(ref).max())
+    res["y2_equal_offline"] = bool(torch.equal(y2_off, y2))
+    print(f"stream vs offline causal path: max |diff| "
+          f"{res['offline_max_dev']:.3e} (peak {res['offline_peak']:.4f}, "
+          f"bar {STREAM_BAR}); the stream's |Y|^2 "
+          f"{'equals' if res['y2_equal_offline'] else 'differs from'} the "
+          f"offline STFT's bit for bit")
+    if not (out.shape == ref.shape == (256 * (clean.size // 256),)
+            and np.isfinite(out).all()
+            and res["offline_max_dev"] <= STREAM_BAR):
+        raise AssertionError(f"stream vs offline: {res}")
+
+    # 4. output length and the 512-sample latency
+    m = 4096 + 100
+    se4 = streaming.StreamingEnhancer(gen, chunk_frames=1, device=dev)
+    first, total = None, 0
+    for i in range(0, m, 256):
+        got = se4.process(clean[i:min(i + 256, m)], noise[i:min(i + 256, m)])
+        if got.size and first is None:
+            first = i + 256
+        total += got.size
+    total += se4.flush().size
+    if not (total == 256 * (m // 256)
+            and first == streaming.StreamingEnhancer.LATENCY_SAMPLES):
+        raise AssertionError(f"stream of {m}: {total} samples out, first "
+                             f"block at {first} samples in")
+    print(f"stream of {m} samples: {total} out; the first block came once "
+          f"{first} samples were in")
+
+    # 5. B streams in one step = B single streams
+    b, f, steps = 8, 8, 3
+    singles = [streaming.init_stream_state(gen, 1, device=dev)
+               for _ in range(b)]
+    batch = streaming.stack_stream_states(singles)
+    rec = PsdRecorder(streaming.carried_noise_psd)
+    kernels.reset_launches()
+    outs_b = []
+    with torch.inference_mode():
+        for st in range(steps):
+            fc, fn = (x.to(dev) for x in stream_frames(clean, noise, b, f, st))
+            batch, o = streaming.streaming_step_batch(
+                gen, batch, fc, fn, cfg.train.p_power, cfg.imcra, rec)
+            outs_b.append(o)
+        torch.cuda.synchronize()
+        batch_launches = kernels.launches["imcra_scan"]
+        worst = 0.0
+        for i in range(b):
+            st_i = singles[i]
+            rows, ju = st_i.imcra_rows, st_i.imcra_ju
+            for st in range(steps):
+                fc, fn = (x[i].to(dev) for x in stream_frames(clean, noise, b,
+                                                              f, st))
+                st_i, o = streaming.streaming_step(gen, st_i, fc, fn,
+                                                   cfg.train.p_power,
+                                                   cfg.imcra)
+                worst = max(worst, float((o - outs_b[st][i]).abs().max()))
+                # stream i alone through the kernel, on the batch's |Y|^2
+                p1, rows, ju = streaming.carried_noise_psd(
+                    rec.y2[st][i:i + 1].contiguous(), rows, ju, st * f,
+                    cfg.imcra)
+                if not torch.equal(p1, rec.psd[st][i:i + 1]):
+                    raise AssertionError(f"batched IMCRA, stream {i}, step "
+                                         f"{st}: != the stream alone")
+    res.update(batch_streams=b, batch_steps=steps,
+               batch_launches=batch_launches, batch_max_diff=worst)
+    print(f"{b} streams x {steps} steps of {f} frames: {batch_launches} IMCRA "
+          f"launches; each stream's IMCRA = the stream alone bit for bit; "
+          f"outputs within {worst:.3e} of the single streams")
+    if batch_launches != steps or worst > STREAM_BAR:
+        raise AssertionError(f"batched streams: {res}")
+    return res, se.state, y2
+
+
+def stateful_kernel_timings(y2: torch.Tensor, cfg) -> dict:
+    """The IMCRA kernel's stateful launch as a stream step makes it: 8
+    frames (l0 = 100, past the warm-up) from a carried state, for 1 and 64
+    streams; graph-replay time beside its bound."""
+    rows, ju = imcra.pack_state(imcra.imcra_init(y2.shape[-1], y2.dtype, cfg,
+                                                 (1,), y2.device))
+    _, rows, ju = streaming.carried_noise_psd(y2[:, :100].contiguous(), rows,
+                                              ju, 0, cfg)
+    out = {}
+    for b in STREAM_BATCHES[1:] + (1,):
+        yb, rb, jb = (x.expand((b,) + x.shape[1:]).contiguous()
+                      for x in (y2[:, 100:108], rows, ju))
+        ms = graph_ms(lambda: imcra.imcra_scan_packed(yb, rb, jb, 100, cfg,
+                                                      keep_state=True))
+        k = y2.shape[-1]
+        n_bytes = 4 * (2 * b * 8 * k + 2 * b * rows.shape[1] * k + 4 * b)
+        bound_ms, by = bound(n_bytes, b * k * 8 * IMCRA_OPS_MAIN)
+        out[f"streams{b}"] = {"ms": ms, "bound_ms": bound_ms, "bound_by": by}
+    print(f"imcra_scan, stateful launch of 8 frames (graph replay): "
+          + ", ".join(f"{b} stream(s) {v['ms']:.4f} ms, bound "
+                      f"{v['bound_ms']:.6f} ms ({v['bound_by']})"
+                      for b, v in ((k[7:], v) for k, v in out.items())))
+    return out
+
+
+def streaming_timings(gen, dev, cfg, state, y2, tmp: str) -> dict:
+    clean, noise = stream_signal()
+    res = {"imcra_stateful": stateful_kernel_timings(y2, cfg.imcra)}
+    with torch.inference_mode():
+        steps = {}
+        for f in (1, 8):
+            fc, fn = (x[0].to(dev) for x in stream_frames(clean, noise, 1, f,
+                                                          5))
+            steps[f] = functools.partial(streaming.streaming_step, gen, state,
+                                         fc, fn, cfg.train.p_power, cfg.imcra)
+        # in turns, twice each: one reading of each was seen to depend on
+        # its place in the run
+        for f in (1, 8, 1, 8):
+            res.setdefault(f"step_ms_{f}", []).append(cuda_ms(steps[f]))
+            res.setdefault(f"step_host_ms_{f}", []).append(host_ms(steps[f]))
+        prof = profile_step(steps[8], float(np.median(res["step_host_ms_8"])),
+                            label="stream_step_profile")
+        res["busy_share_8"] = prof["busy_share"]
+        res["device_ms_8"] = prof["device_ms_per_batch"]
+        res["device_ops_8"] = prof["device_ops_per_batch"]
+        for b in STREAM_BATCHES:
+            batch = streaming.stack_stream_states([state] * b)
+            fc, fn = (x.to(dev) for x in stream_frames(clean, noise, b, 8, 0))
+            ms = cuda_ms(lambda: streaming.streaming_step_batch(
+                gen, batch, fc, fn, cfg.train.p_power, cfg.imcra))
+            res[f"batch{b}_step_ms"] = ms
+            res[f"batch{b}_frames_per_s"] = b * 8 / ms * 1e3
+    # the CLI: real-time factor at two feed sizes
+    ck = save_seeded_checkpoint(f"{tmp}/stream_ckpt", cfg, dev)
+    write_wav_pcm16(f"{tmp}/c.wav", clean)
+    write_wav_pcm16(f"{tmp}/n.wav", noise)
+    for chunk_ms in (16, 128):
+        r = stream.main(["--clean", f"{tmp}/c.wav", "--noise", f"{tmp}/n.wav",
+                         "--out", f"{tmp}/e.wav", "--checkpoint", ck,
+                         "--chunk-ms", str(chunk_ms), "--compare-offline",
+                         "--device", "cuda"])
+        if not (r["samples"] == 256 * (clean.size // 256)
+                and r["offline_max_dev"] <= STREAM_BAR):
+            raise AssertionError(f"cli.stream at {chunk_ms} ms: {r}")
+        res[f"rtf_{chunk_ms}ms"] = r["rtf"]
+        res[f"chunk_ms_p50_{chunk_ms}ms"] = r["chunk_ms_p50"]
+    print(f"streaming, one stream: step {res['step_ms_1']} ms at 1 frame, "
+          f"{res['step_ms_8']} ms at 8 (CUDA events, in turns; host clock "
+          f"{res['step_host_ms_1']}, {res['step_host_ms_8']} ms), "
+          f"device busy {res['busy_share_8']:.3f} of an 8-frame step; RTF "
+          f"{res['rtf_16ms']:.4f} at 16 ms chunks, {res['rtf_128ms']:.4f} at "
+          f"128 ms; " + ", ".join(
+              f"B = {b}: {res[f'batch{b}_frames_per_s']:.0f} frames/s "
+              f"({res[f'batch{b}_step_ms']:.3f} ms a step of 8 frames)"
+              for b in STREAM_BATCHES))
+    return res
+
+
+def streaming_phase(dev) -> dict:
+    """The streaming path at full width, float32, TF32 off; every check
+    raises.  Launch counts are zeroed before each run and read after it:
+    the IMCRA kernel runs once per chunk step."""
+    cfg = Config()
+    gen = seeded_generator(0).to(dev).eval()
+    t0 = time.perf_counter()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        res, state, y2 = streaming_checks(gen, dev, cfg)
+        res.update(streaming_timings(gen, dev, cfg, state, y2, tmp))
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"streaming phase: {res['phase_s']:.1f} s")
+    return res
+
+
+# ------------------------------------------------------------------ infer
+def write_corpus(root: str) -> int:
+    """INFER_PER_BUCKET utterances in each of INFER_BUCKETS, cut from the
+    golden speech and noise at seeded offsets and scales, as PCM16 wavs
+    under root/Clean and root/Noise."""
+    clean, noise = speech_signals()
+    rng = np.random.RandomState(9)
+    for sub in ("Clean", "Noise"):
+        Path(root, sub).mkdir(parents=True)
+    k = 0
+    for lo, hi in INFER_BUCKETS:
+        for _ in range(INFER_PER_BUCKET):
+            n = int(rng.randint(lo, hi + 1))
+            off, s = int(rng.randint(0, clean.size)), float(rng.uniform(0.5,
+                                                                        1.5))
+            name = f"u{k:02d}#Cafeteria#{k}.wav"
+            write_wav_pcm16(f"{root}/Clean/{name}", crop(clean, n, off, s))
+            write_wav_pcm16(f"{root}/Noise/{name}",
+                            crop(noise, n, off + 99, s))
+            k += 1
+    return k
+
+
+def infer_phase(dev) -> dict:
+    """cli.infer over a corpus written here, from a port checkpoint of the
+    seeded generator; every check raises.  Launch counts are zeroed before
+    the CLI runs and read after it and one `mmse_lsa_enhance` call."""
+    cfg = Config()
+    gen = seeded_generator(0).to(dev).eval()
+    t0 = time.perf_counter()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        n_utts = write_corpus(f"{tmp}/corpus")
+        ck = save_seeded_checkpoint(f"{tmp}/ckpt", cfg, dev)
+        args = ["--test-clean", f"{tmp}/corpus/Clean", "--test-noise",
+                f"{tmp}/corpus/Noise", "--checkpoint", ck, "--metrics", "",
+                "--device", "cuda"]
+        kernels.reset_launches()
+        first = infer.main(args + ["--output", f"{tmp}/out"])
+        g = speech_signals()
+        spec = stft(torch.from_numpy(g[0] + g[1]).to(dev))
+        enh = mmse.mmse_lsa_enhance(spec)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        if not (len(first["written"]) == n_utts
+                and launches["imcra_scan"] == first["batches"] + 1):
+            raise AssertionError(f"infer: {len(first['written'])} files, "
+                                 f"{launches} launches for "
+                                 f"{first['batches']} batches + 1 MMSE call")
+        warm = infer.main(args + ["--output", f"{tmp}/out2"])
+
+        # 1. the files = enhance_batch on the same batches; 2. the plain
+        # IMCRA path within 1 LSB
+        index = CorpusIndex(sorted(get_filepaths(f"{tmp}/corpus/Clean")),
+                            f"{tmp}/corpus/Noise")
+        n_diff = n_total = max_lsb = 0
+        for batch in BucketedLoader(index, 8, shuffle=False)():
+            q = {}
+            with torch.inference_mode():
+                for key, psd in (("kernel", imcra.imcra_psd),
+                                 ("plain", plain_noise_psd)):
+                    feats = pipeline.featurize_batch(
+                        batch.clean, batch.noise, batch.lengths,
+                        cfg.train.p_power, cfg.imcra, device=dev,
+                        noise_psd=psd)
+                    wav, _, out_len = pipeline.enhance_batch(gen, feats,
+                                                             device=dev)
+                    q[key] = pipeline.pcm16_quantize_i16(wav).cpu().numpy()
+            for i, name in enumerate(batch.names):
+                m = int(out_len[i])
+                path = f"{tmp}/out/{name[:-4]}@1.wav"
+                got = (read_wav(path)[0] * 32768.0).astype(np.int16)
+                if not np.array_equal(got, q["kernel"][i, :m]):
+                    raise AssertionError(f"infer: {path} != enhance_batch")
+                d = np.abs(got.astype(np.int32) - q["plain"][i, :m])
+                n_diff += int((d > 0).sum())
+                n_total += d.size
+                max_lsb = max(max_lsb, int(d.max()))
+        print(f"infer: {n_utts} files equal enhance_batch on the same "
+              f"batches; against the plain IMCRA path {n_diff} of {n_total} "
+              f"samples differ, max {max_lsb} LSB")
+        if max_lsb > 1:
+            raise AssertionError("infer PCM16 beyond 1 LSB of the plain path")
+
+        # 3. mmse_lsa_enhance's IMCRA (its own config) = the plain loop
+        mcfg = ImcraConfig(alpha_dd=0.92, xi_min=10.0 ** (-25.0 / 20.0),
+                           is_frames=10)
+        y2 = (spec.real * spec.real
+              + spec.imag * spec.imag).T[None].contiguous()
+        k_psd = imcra.imcra_estimate_psd(spec, mcfg).T[None]
+        p_psd = imcra.imcra_scan_plain(y2, None, 0, mcfg)[0]
+        if not (torch.equal(k_psd, p_psd) and torch.isfinite(enh).all()
+                and enh.shape == spec.shape):
+            raise AssertionError("mmse_lsa_enhance: kernel IMCRA != plain")
+        print(f"mmse_lsa_enhance on {list(spec.shape)}: its IMCRA (is_frames "
+              f"10) bit-equal to the plain loop")
+    res = {"utterances": n_utts, "batches": first["batches"],
+           "launches": launches, "pcm16_diff_samples": n_diff,
+           "pcm16_total_samples": n_total, "max_lsb": max_lsb,
+           "phase_s": time.perf_counter() - t0}
+    for key, r in (("first", first), ("warm", warm)):
+        res[key] = {k: r[k] for k in ("seconds", "read_s", "write_s",
+                                      "fetch_s", "dispatch_s")}
+        res[key]["utterances_per_s"] = n_utts / r["seconds"]
+        res[key]["io_s"] = r["read_s"] + r["write_s"]
+        res[key]["device_s"] = r["dispatch_s"] + r["fetch_s"]
+    print(f"infer: {res['warm']['utterances_per_s']:.1f} utterances/s end to "
+          f"end on the second run ({res['first']['utterances_per_s']:.1f} on "
+          f"the first, with new cuFFT plans); wav I/O "
+          f"{res['warm']['io_s']:.4f} s, dispatch and device "
+          f"{res['warm']['device_s']:.4f} s; phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1174,13 +1631,22 @@ def main() -> None:
     records = [imcra_phase(dev), cascade_phase(dev)]
     serving = serving_phase(dev)
     training = training_phase(dev)
+    streamed = streaming_phase(dev)
+    inferred = infer_phase(dev)
     for rec in records:
         rec["launches"] = serving["launches"][rec["name"]]
         rec["training_launches"] = training["launches"][rec["name"]]
+        rec["infer_launches"] = inferred["launches"][rec["name"]]
     records[0]["training_featurized_batches"] = training["featurized_batches"]
+    records[0]["streaming_steps"] = streamed["steps"]
+    for rec in records:
+        rec["streaming_launches"] = streamed["launches_all"][rec["name"]]
+    records[0]["infer_batches_plus_mmse_calls"] = inferred["batches"] + 1
     print(json.dumps({"serving": {k: v for k, v in serving.items()
                                   if k not in ("launches", "profile")}}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"streaming": streamed}))
+    print(json.dumps({"infer": inferred}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,14 +22,16 @@ Protocol (TCP, length-prefixed, little-endian, 16 kHz float32 PCM):
 
 `enhance_remote()` is the matching client helper.
 
-    python -m nelegan_tpu_torch.cli.serve --torch-checkpoint chkpt_GD.pt \\
-        [--port 7860] [--batch-size 8] [--max-wait-ms 15] \\
-        [--warmup-lengths 36864] [--device cuda]
+    python -m nelegan_tpu_torch.cli.serve --checkpoint ./chkpt \\
+        [--torch-checkpoint chkpt_GD.pt] [--port 7860] [--batch-size 8] \\
+        [--max-wait-ms 15] [--warmup-lengths 36864] [--device cuda]
 
-Weights come from a reference `chkpt_GD.pt` (its 'enhance-model' state
-dict, loaded directly).  The reference package's native msgpack checkpoints
-cannot be read by the port yet; its own training checkpoints
-(`train/checkpoint.py`) are in another format.
+Weights come from `--checkpoint` (a training checkpoint of the port,
+``.ptstate``, or of the reference package, ``.msgpack``, or a directory whose
+`latest` names one) or from a reference `chkpt_GD.pt` (`--torch-checkpoint`,
+its 'enhance-model' state dict), which wins when both are given, as in the
+reference package's server.  The generator is sized by the checkpoint's
+config (`train.checkpoint.load_generator`).
 """
 from __future__ import annotations
 
@@ -47,8 +49,7 @@ import torch
 from nelegan_tpu_torch import pipeline
 from nelegan_tpu_torch.config import Config
 from nelegan_tpu_torch.device import disable_tf32, resolve_device
-from nelegan_tpu_torch.models.convert import load_reference_checkpoint
-from nelegan_tpu_torch.models.generator import Generator
+from nelegan_tpu_torch.train.checkpoint import load_generator
 
 MAGIC = b"NELE"
 VERSION = 1
@@ -121,12 +122,14 @@ class EnhanceServer:
     """Dynamic-batching enhancement service around one generator.
 
     `generator` is moved to `device` (None means CUDA, and raises without
-    a GPU) and put in eval mode; the server owns it from then on."""
+    a GPU) and put in eval mode; the server owns it from then on.  `cfg`
+    gives the DSP and IMCRA settings (default `Config()`)."""
 
     def __init__(self, generator: torch.nn.Module, batch_size: int = 8,
-                 max_wait_ms: float = 15.0, device=None):
+                 max_wait_ms: float = 15.0, device=None,
+                 cfg: Optional[Config] = None):
         self.device = resolve_device(device)
-        self.cfg = Config()
+        self.cfg = cfg or Config()
         self.generator = generator.to(self.device).eval()
         self.batch_size = batch_size
         self.max_wait = max_wait_ms / 1000.0
@@ -307,7 +310,9 @@ class EnhanceServer:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--torch-checkpoint", required=True,
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint dir, .ptstate or .msgpack file")
+    p.add_argument("--torch-checkpoint", default=None,
                    help="reference chkpt_GD.pt (its 'enhance-model' entry)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7860)
@@ -325,11 +330,13 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     disable_tf32()   # serve in full float32, the generator's parity bar
-    generator = Generator()
-    generator.load_state_dict(load_reference_checkpoint(args.torch_checkpoint),
-                              strict=True)
+    generator, cfg, epoch = load_generator(args.checkpoint,
+                                           args.torch_checkpoint, device)
+    if epoch is not None:
+        print(f"loaded checkpoint epoch {epoch}")
     server = EnhanceServer(generator, batch_size=args.batch_size,
-                           max_wait_ms=args.max_wait_ms, device=device)
+                           max_wait_ms=args.max_wait_ms, device=device,
+                           cfg=cfg)
     warm = [int(x) for x in args.warmup_lengths.split(",") if x.strip()]
     if warm:
         t0 = time.perf_counter()

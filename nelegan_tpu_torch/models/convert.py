@@ -8,8 +8,8 @@
 * `train_state_from_jax` carries a whole `nelegan_tpu` TrainState across:
   params, spectral u and v, Adam moments and counts, step counters.
 * `reference_state_dicts` is the one reader of a reference `chkpt_*.pt`
-  (reference: train_nele.py:272-277); `load_reference_checkpoint` takes its
-  generator.
+  (reference: train_nele.py:272-277), `save_reference_checkpoint` its one
+  writer; `load_reference_checkpoint` takes a file's generator.
 
 Callers pass numpy arrays (``jax.tree.map(np.asarray, ...)``); nothing here
 imports JAX.
@@ -153,6 +153,20 @@ def reference_state_dicts(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
     if not found:
         raise KeyError(f"{path}: no model entry (found {sorted(blob)})")
     return found
+
+
+def save_reference_checkpoint(path: str,
+                              state_dicts: Mapping[str, Mapping[str, Any]]
+                              ) -> str:
+    """Write a reference ``chkpt_*.pt`` of the given slots (``'gen'``,
+    ``'d'``, ``'dq'``, each a state dict of this package's models), on the
+    CPU, under the reference's entry names: the inverse of
+    `reference_state_dicts`."""
+    blob = {REFERENCE_ENTRIES[slot]: {k: v.detach().cpu()
+                                      for k, v in sd.items()}
+            for slot, sd in state_dicts.items()}
+    torch.save(blob, path)
+    return path
 
 
 def load_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:

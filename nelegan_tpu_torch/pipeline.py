@@ -27,6 +27,7 @@ import torch
 
 from nelegan_tpu_torch.config import ImcraConfig
 from nelegan_tpu_torch.device import resolve_device
+from nelegan_tpu_torch.dsp.asl_p56 import asl_p56_rows
 from nelegan_tpu_torch.dsp.erb import band_energy, interp_band_gain
 from nelegan_tpu_torch.dsp.features import (featurize_noise, featurize_speech,
                                             resynthesize, rms)
@@ -105,6 +106,19 @@ def reflect_pad_device(wav: torch.Tensor, lengths) -> torch.Tensor:
     idx = torch.clamp(last - torch.abs(last - head), 0, n - 1)  # tail
     out = torch.gather(wav, 1, idx)
     return torch.where(j[None, :] < lengths + N_FFT, out, 0.0)
+
+
+def active_speech_level_batch(wavs, device=None) -> torch.Tensor:
+    """ITU-T P.56 active speech level of each row of wavs [B, n] (numpy or
+    a tensor) on `device` -> active-speech RMS [B], the square root of the
+    P.56 mean square (floored at 1e-12), in the rows' dtype.  The reference
+    ships asl_P56.py but never wires it in; the reference package offers it
+    as a normalisation variant."""
+    dev = resolve_device(device)
+    w = torch.as_tensor(wavs, device=dev)
+    msq, _, _ = asl_p56_rows(w, 16000, 16)
+    return torch.sqrt(torch.clamp_min(
+        torch.as_tensor(msq, dtype=w.dtype, device=dev), 1e-12))
 
 
 class BatchFeatures(NamedTuple):

@@ -11,8 +11,11 @@ Format: one ``chkpt_<epoch>.ptstate`` per epoch, written with `torch.save`
 and read with ``torch.load(weights_only=True)``, beside a JSON sidecar
 ``chkpt_<epoch>.ptstate.json`` holding ``epoch``, ``replay`` and ``extra``
 (``extra["config"]`` from `config_to_dict`), and a ``latest`` symlink.  The
-suffix differs from the reference package's ``.msgpack`` and from the
-reference's ``chkpt_*.pt``, which `load_reference_checkpoint` reads.
+suffix differs from the reference's ``chkpt_*.pt``, which
+`load_reference_checkpoint` reads, and from the reference package's
+``chkpt_<epoch>.msgpack`` (flax serialization, with the same sidecar), which
+the loaders here also read: `train.flax_msgpack` decodes it without flax or
+msgpack, and `models.convert.train_state_from_jax` carries the state across.
 """
 from __future__ import annotations
 
@@ -21,15 +24,21 @@ import json
 import os
 import re
 import threading
+from types import SimpleNamespace
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from nelegan_tpu_torch.config import Config, config_from_dict
-from nelegan_tpu_torch.models.convert import reference_state_dicts
-from nelegan_tpu_torch.train.gan import TrainState
+from nelegan_tpu_torch.device import resolve_device
+from nelegan_tpu_torch.models import convert
+from nelegan_tpu_torch.models.generator import Generator
+from nelegan_tpu_torch.train import flax_msgpack
+from nelegan_tpu_torch.train.gan import TrainState, init_train_state
 
 SUFFIX = ".ptstate"
+JAX_SUFFIX = ".msgpack"
 FORMAT = 1
 
 
@@ -203,25 +212,53 @@ def _resolve(path: str) -> str:
 
 def load_checkpoint(path: str, template_state: TrainState):
     """-> (state, rng, epoch, replay_json).  `path` is a directory (its
-    `latest`) or a checkpoint file; `template_state`, built for the same
-    config, receives the tensors on its own device and dtype."""
+    `latest`) or a checkpoint file, the port's ``.ptstate`` or the reference
+    package's ``.msgpack``; `template_state`, built for the same config,
+    receives the tensors on its own device and dtype.  `rng` is the saved
+    `torch.Generator`, or for a ``.msgpack`` file the JAX PRNG key's data as
+    a numpy ``uint32[2]``: a port run resumed from it cannot continue JAX's
+    random stream."""
     state, rng, epoch, replay_json, _ = load_checkpoint_full(path,
                                                              template_state)
     return state, rng, epoch, replay_json
+
+
+def jax_train_state(tree: Dict[str, Any]) -> SimpleNamespace:
+    """The decoded ``state`` of a reference-package checkpoint (a dict whose
+    optax Adam chains arrive as ``{"0": {count, mu, nu}, "1": {}}``) in the
+    shape `models.convert.train_state_from_jax` reads a reference-package
+    `TrainState`: attributes, numpy leaves, each Adam state a tuple whose
+    first element has ``count``, ``mu`` and ``nu``."""
+    opts = {name: (SimpleNamespace(**tree[name]["0"]),)
+            for name in ("gen_opt", "d_opt", "dq_opt")}
+    return SimpleNamespace(**dict(tree, **opts))
+
+
+def _load_jax(path: str, template_state: TrainState, meta: Dict[str, Any]):
+    blob = flax_msgpack.load(path)
+    cfg = _config(meta)
+    state = convert.train_state_from_jax(jax_train_state(blob["state"]), cfg,
+                                         template_state.device)
+    template_state.load_state_dict(state.state_dict())
+    return template_state, np.asarray(blob["rng"], np.uint32)
 
 
 def load_checkpoint_full(path: str, template_state: TrainState):
     """-> (state, rng, epoch, replay_json, extra), the sidecar's `extra` of
     the same checkpoint file."""
     path = _resolve(path)
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    if path.endswith(JAX_SUFFIX):
+        state, rng = _load_jax(path, template_state, meta)
+        return (state, rng, int(meta["epoch"]), meta.get("replay", "[]"),
+                meta.get("extra") or {})
     blob = torch.load(path, map_location="cpu", weights_only=True)
     if blob.get("format") != FORMAT:
         raise ValueError(f"{path}: not a checkpoint of format {FORMAT}")
     template_state.load_state_dict(blob["state"])
     rng = torch.Generator()
     rng.set_state(blob["rng"])
-    with open(path + ".json") as f:
-        meta = json.load(f)
     return (template_state, rng, int(blob["epoch"]), blob["replay"],
             meta.get("extra") or {})
 
@@ -233,14 +270,21 @@ def peek_meta(path: str) -> Dict[str, Any]:
         return json.load(f)
 
 
+def _config(meta: Dict[str, Any]) -> Config:
+    try:
+        return config_from_dict(meta["extra"]["config"])
+    except (KeyError, TypeError):
+        return Config()
+
+
 def config_for_checkpoint(path: Optional[str]) -> Config:
-    """The Config a checkpoint was trained with (sidecar
+    """The Config a checkpoint (either format) was trained with (sidecar
     ``extra["config"]``); the defaults for a checkpoint without one, or
     when no path is given."""
     if path:
         try:
-            return config_from_dict(peek_meta(path)["extra"]["config"])
-        except (KeyError, FileNotFoundError, json.JSONDecodeError):
+            return _config(peek_meta(path))
+        except (FileNotFoundError, json.JSONDecodeError):
             pass
     return Config()
 
@@ -249,6 +293,28 @@ def load_reference_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a reference ``chkpt_*.pt`` ('enhance-model', 'intel-model',
     'quality-model', whichever it holds) into G, D and D_Qua with
     ``strict=True``; optimiser states and counters are left as they are."""
-    for slot, sd in reference_state_dicts(path).items():
+    for slot, sd in convert.reference_state_dicts(path).items():
         getattr(state, slot).load_state_dict(sd, strict=True)
     return state
+
+
+def load_generator(checkpoint: Optional[str] = None,
+                   torch_checkpoint: Optional[str] = None, device=None):
+    """The generator a CLI runs, as the reference package's CLIs load it:
+    sized by `config_for_checkpoint(checkpoint)`, its weights from
+    `torch_checkpoint` (a reference ``chkpt_*.pt``; it wins when both are
+    given) or from `checkpoint` (a ``.ptstate`` or ``.msgpack`` file, or a
+    directory).  -> (generator on `device` (None: CUDA) in eval mode,
+    config, epoch or None)."""
+    dev = resolve_device(device)
+    cfg = config_for_checkpoint(checkpoint)
+    if torch_checkpoint:
+        gen = Generator.from_config(cfg.model)
+        gen.load_state_dict(convert.load_reference_checkpoint(
+            torch_checkpoint), strict=True)
+        return gen.to(dev).eval(), cfg, None
+    if checkpoint:
+        state, _, epoch, _ = load_checkpoint(checkpoint,
+                                             init_train_state(cfg, 0, dev))
+        return state.gen.eval(), cfg, epoch
+    raise SystemExit("need --checkpoint or --torch-checkpoint")
