@@ -8,7 +8,7 @@ and in a directory that holds this file and nothing else of the repository.
 Phases, in order; any failure raises:
 
   1. the card, as `nvidia-smi --query-gpu=name,power.limit` prints it;
-  2. build both kernels from nelegan_tpu_torch/csrc (one nvcc per source,
+  2. build the kernels from nelegan_tpu_torch/csrc (one nvcc per source,
      started together);
   3. kernel phase, TF32 off: each kernel against its plain PyTorch version
      on the card, at the main path's shapes (IMCRA [8, 257, 145]: eight
@@ -30,7 +30,17 @@ Phases, in order; any failure raises:
      CUDA events (median of 5 such bursts), replayed from a CUDA graph where
      the host would otherwise set the pace; each kernel's device time from
      torch.profiler; IMCRA's wrapper as `featurize_batch` calls it and the
-     packed wrapper of a scan from `imcra_init`;
+     packed wrapper of a scan from `imcra_init`.  The first-order
+     recurrence `linrec` (ops/iir) with an initial state at [32, 55296]
+     with one pole a row and [8, 55296] with a pole per step, float32 and
+     complex64, against its plain loop on the card (bar LINREC_BAR) and one
+     row against the host's float64, past one shared-memory segment and at
+     one sample; graph-replay times beside the bytes bound, and the cuFFT
+     convolution with the truncated impulse response as the yardstick for
+     one pole a row; the scan-form middle ear (three linrec launches)
+     against the spectral fold the ear model uses (bar MIDDLE_EAR_BAR);
+     `one_pole_cascade` (both forms) and `linear_recurrence_2x2` on the
+     card against the host's float64;
   4. serving phase, the port's main path: `EnhanceServer` at full width
      (hidden 256, 6 blocks, 64 bands; weights from a numpy seed), batch 8,
      on 127.0.0.1:0; ten concurrent requests over two buckets, then three
@@ -85,9 +95,22 @@ Phases, in order; any failure raises:
      once per batch and once for one `mmse_lsa_enhance` call (its own
      configuration), whose PSD equals the plain loop's bit for bit;
      utterances/s with wav I/O and device work apart;
-  8. one JSON line per phase, one of kernel records (each with its launches
-     on the serving, training, streaming and infer paths), the card line
-     again, and last `{"ok": true, "device": ...}`.
+  8. scoring phase (`metrics/`, `cli/infer --metrics`), float32, TF32 off:
+     the infer phase's 24 utterances go through `cli/infer --metrics
+     siib,haspi,estoi` (launch counts zeroed before and read after) and
+     through `score_corpus` with vmap_chunk 8; score_corpus (padded rows)
+     against score_batch within the reference package's bucketed bars; a
+     clean-cache hit equal to its cold fill and within CACHE_BAR of the
+     pair path; three utterances, one a bucket, against the CPU's float64
+     within SCORE_BARS, which the controls (TF32 on; SIIB's KLT in float32)
+     must fail; the ear model against tests/goldens/ear_model.npz
+     (EAR_GOLDEN_BAR); utterances/s per metric and for all three, cold and
+     warm, by host clock and CUDA events; one profile (busy share, top
+     device operations); SIIB's eigh time against its warm time;
+  9. one JSON line per phase, one of kernel records (each with its launches
+     on the serving, training, streaming, infer and scoring paths and in
+     the kernel phase), the card line again, and last
+     `{"ok": true, "device": ...}`.
 """
 from __future__ import annotations
 
@@ -104,7 +127,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from nelegan_tpu_torch import kernels, pipeline, streaming
+from nelegan_tpu_torch import kernels, metrics, pipeline, streaming
 from nelegan_tpu_torch.cli import infer, stream
 from nelegan_tpu_torch.cli.serve import EnhanceServer, enhance_remote
 from nelegan_tpu_torch.config import Config, ImcraConfig, config_to_dict
@@ -114,8 +137,12 @@ from nelegan_tpu_torch.data.wavio import read_wav, write_wav_pcm16
 from nelegan_tpu_torch.device import disable_tf32
 from nelegan_tpu_torch.dsp import imcra, mmse
 from nelegan_tpu_torch.dsp.stft import stft
+from nelegan_tpu_torch.metrics.haspi.ear_model import (ear_model, middle_ear,
+                                                       middle_ear_response)
+from nelegan_tpu_torch.metrics.siib import (_capacity, _klt, _stack_pair,
+                                            siib_prepare)
 from nelegan_tpu_torch.models.generator import Generator
-from nelegan_tpu_torch.ops import cascade
+from nelegan_tpu_torch.ops import cascade, iir
 from nelegan_tpu_torch.train import checkpoint, gan
 
 REPO = Path(__file__).resolve().parent
@@ -175,6 +202,24 @@ STREAM_BATCHES = (8, 64)    # concurrent streams timed
 # Infer phase: eight utterances in each of three length buckets.
 INFER_BUCKETS = ((12289, 16384), (20481, 24576), (32769, 36864))
 INFER_PER_BUCKET = 8
+# linrec kernel: HASPI's 24 kHz length of a 36864-sample utterance; 32 rows
+# with one pole each (the ear's channels), 8 rows with a pole per step.
+LINREC_N = 55296
+LINREC_BAR = 1e-5        # relative to each row's largest |y|, float32
+MIDDLE_EAR_BAR = 1e-5    # the scan against the spectral fold, relative
+# Scoring phase bars against the CPU's float64 score of the same file, on
+# |card - cpu| / max(|cpu|, 1) (rel_errors), fixed in PERF.md before the
+# phase first ran: ~10 times the port's float32 error on the CPU, below the
+# control's (TF32 on for ESTOI and HASPI; SIIB's KLT and capacity in
+# float32, its arithmetic without the float64 the reference package gets
+# under x64), which must fail each.
+SCORE_BARS = {"estoi": 5e-6, "haspi": 5e-5, "siib": 5e-4}
+HASPI_F32_BAR = 2e-3     # the reference package's own (COMPONENTS.md:38)
+EAR_GOLDEN_BAR = 5e-5    # float32 ear model on the card against the golden
+CACHE_BAR = 1e-5         # a clean-cache hit against the pair path
+# score_corpus against score_batch: tests/test_metrics_bucketed.py's bars
+CORPUS_BARS = {"estoi": 1e-3, "haspi": 5e-3}
+SCORE_METRICS = ("siib", "haspi", "estoi")
 
 
 def card_line() -> str:
@@ -556,6 +601,206 @@ def cascade_phase(dev) -> dict:
                               "rel_err_vs_lfilter": o["kernel_rel_vs_lfilter"]}
                              for o in others],
             "on_main_path": False}
+
+
+# ---------------------------------------------------------------- linrec
+def linrec_inputs(dev, rows: int, n: int, per_step: bool, cplx: bool,
+                  seed: int):
+    """Seeded a, b, y0 on the card: |a| in [0.5, 0.99] (complex: any
+    phase), b and y0 standard normal."""
+    rng = np.random.RandomState(seed)
+    shape = (rows, n) if per_step else (rows,)
+    a = rng.uniform(0.5, 0.99, shape) * rng.choice([-1.0, 1.0], shape)
+    b = rng.randn(rows, n)
+    y0 = rng.randn(rows)
+    dt = torch.float32
+    if cplx:
+        a = np.abs(a) * np.exp(1j * rng.uniform(-np.pi, np.pi, shape))
+        b = b + 1j * rng.randn(rows, n)
+        y0 = y0 + 1j * rng.randn(rows)
+        dt = torch.complex64
+    return tuple(torch.as_tensor(v).to(dt).to(dev).contiguous()
+                 for v in (a, b, y0))
+
+
+def host_recurrence(a: np.ndarray, b: np.ndarray, y0) -> np.ndarray:
+    """One row in float64 (complex128) on the host: lfilter for one pole a
+    row, a loop for a pole per step."""
+    from scipy.signal import lfilter
+    if a.ndim == 0:
+        return lfilter([1.0], [1.0, -a], b, zi=[a * y0])[0]
+    y, s = np.empty_like(b), y0
+    for i in range(b.size):
+        s = a[i] * s + b[i]
+        y[i] = s
+    return y
+
+
+def linrec_checks(dev, rows: int, n: int, per_step: bool, cplx: bool,
+                  seed: int, plain: bool = True) -> dict:
+    """The kernel against its plain version on the card (when `plain`) and
+    row 0 against the host's float64; raises beyond LINREC_BAR."""
+    a, b, y0 = linrec_inputs(dev, rows, n, per_step, cplx, seed)
+    y = iir.linrec(a, b, y0)
+    ref = iir.linrec_plain(a, b, y0) if plain else None
+    torch.cuda.synchronize()
+    wide = np.complex128 if cplx else np.float64
+    got = y.cpu().numpy()
+    row0 = host_recurrence(a[0].cpu().numpy().astype(wide),
+                           b[0].cpu().numpy().astype(wide),
+                           y0[0].cpu().numpy().astype(wide))
+    rec = {"shape": [rows, n], "a": "per step" if per_step else "per row",
+           "type": "complex64" if cplx else "float32",
+           "rel_vs_host_f64": float(np.abs(got[0] - row0).max()
+                                    / np.abs(row0).max())}
+    if plain:
+        want = ref.cpu().numpy()
+        scale = np.abs(want).max(1)
+        rec["rel_vs_plain"] = float((np.abs(got - want).max(1) / scale).max())
+        rec["max_abs_err"] = float(np.abs(got - want).max())
+        rec["plain_rel_vs_host_f64"] = float(np.abs(want[0] - row0).max()
+                                             / np.abs(row0).max())
+    print(f"linrec at {rec['shape']} ({rec['a']}, {rec['type']}, with y0): "
+          f"{rec}")
+    if not all(v < LINREC_BAR for k, v in rec.items() if "rel" in k):
+        raise AssertionError(f"linrec beyond {LINREC_BAR}: {rec}")
+    return rec
+
+
+def middle_ear_check(dev) -> dict:
+    """The scan-form middle ear (a 2-tap FIR, then linrec for the one-pole
+    and the biquad's two complex poles) against the closed-form response
+    `_ear_core` folds into its spectrum, at the ear core's FFT size."""
+    x = torch.from_numpy(np.random.RandomState(11).randn(2, LINREC_N)
+                         .astype(np.float32)).to(dev)
+    m = iir._fft_len_ir(LINREC_N, 4096)
+
+    def fold():
+        spec = torch.fft.fft(x.to(torch.complex64), m)
+        return torch.fft.ifft(spec * middle_ear_response(
+            m, torch.complex64, dev))[:, :LINREC_N].real
+
+    before = kernels.launches["linrec"]
+    scan = middle_ear(x)
+    launched = kernels.launches["linrec"] - before
+    want = fold()
+    torch.cuda.synchronize()
+    rel = float((scan - want).abs().max() / want.abs().max())
+    rec = {"shape": [2, LINREC_N], "fft_size": m, "rel_err": rel,
+           "linrec_launches": launched, "scan_ms": cuda_ms(
+               lambda: middle_ear(x)), "fold_ms": cuda_ms(fold)}
+    print(f"middle ear, scan (linrec) against the spectral fold: {rec}")
+    if rel >= MIDDLE_EAR_BAR or launched != 3:
+        raise AssertionError(f"middle ear scan vs fold: {rec}")
+    return rec
+
+
+def iir_checks(dev) -> dict:
+    """ops/iir's other users of linrec on the card against the host's
+    float64: a four-stage cascade (one_pole_cascade, both forms) and a
+    constant 2x2 system (linear_recurrence_2x2, run as its two complex
+    one-poles); raises beyond LINREC_BAR."""
+    from scipy.signal import lfilter
+    rng = np.random.RandomState(12)
+    x = rng.randn(4, 20000)
+    m = np.array([[0.5, 0.3], [-0.2, 0.8]])
+    v = rng.randn(20000, 2)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    before = kernels.launches["linrec"]
+    got = {"cascade": iir.one_pole_cascade(xt, 0.97, 4),
+           "cascade_blocked": iir.one_pole_cascade(xt, 0.97, 4, blocked=True),
+           "recurrence_2x2": iir.linear_recurrence_2x2(
+               torch.as_tensor(m, dtype=torch.float32, device=dev),
+               torch.as_tensor(v, dtype=torch.float32, device=dev))}
+    launched = kernels.launches["linrec"] - before
+    den = np.poly([0.97] * 4)
+    want = {"cascade": lfilter([1.0], den, x), "cascade_blocked":
+            lfilter([1.0], den, x), "recurrence_2x2":
+            iir.linear_recurrence_2x2(torch.from_numpy(m),
+                                      torch.from_numpy(v)).numpy()}
+    rec = {k: float(np.abs(got[k].cpu().numpy() - w).max() / np.abs(w).max())
+           for k, w in want.items()}
+    rec["linrec_launches"] = launched
+    print(f"ops/iir on the card against float64: {rec}")
+    if launched != 9 or not all(v < LINREC_BAR for k, v in rec.items()
+                                if k != "linrec_launches"):
+        raise AssertionError(f"ops/iir on the card: {rec}")
+    return rec
+
+
+def linrec_phase(dev) -> dict:
+    main = linrec_checks(dev, 32, LINREC_N, False, False, 20)
+    others = [linrec_checks(dev, 8, LINREC_N, True, False, 21),
+              linrec_checks(dev, 32, LINREC_N, False, True, 22),
+              linrec_checks(dev, 8, LINREC_N, True, True, 23),
+              # past one shared-memory segment, and the shortest row
+              linrec_checks(dev, 2, 200001, True, True, 24, plain=False),
+              linrec_checks(dev, 3, 1, True, False, 25)]
+    me = middle_ear_check(dev)
+    users = iir_checks(dev)
+
+    timed = {}
+    for key, rows, per_step, cplx, seed in (
+            ("real_per_row", 32, False, False, 20),
+            ("real_per_step", 8, True, False, 21),
+            ("complex_per_row", 32, False, True, 22),
+            ("complex_per_step", 8, True, True, 23)):
+        a, b, y0 = linrec_inputs(dev, rows, LINREC_N, per_step, cplx, seed)
+        item = 8 if cplx else 4
+        n_bytes = item * (2 * rows * LINREC_N + rows
+                          + (rows * LINREC_N if per_step else rows))
+        n_ops = (8 if cplx else 2) * rows * LINREC_N
+        bms, by = bound(n_bytes, n_ops)
+        ms = graph_ms(lambda: iir.linrec(a, b, y0))
+        timed[key] = {"shape": [rows, LINREC_N], "ms": ms, "bound_ms": bms,
+                      "bound_by": by, "roofline_share": bms / ms}
+    a, b, y0 = linrec_inputs(dev, 32, LINREC_N, False, False, 20)
+    prof_ms = profiler_ms(lambda: iir.linrec(a, b, y0), "linrec_kernel")
+    eager_ms = cuda_ms(lambda: iir.linrec(a, b, y0))
+    plain_ms = cuda_ms(lambda: iir.linrec_plain(a, b, y0), calls=1,
+                       samples=1, warmup=0)
+    # yardstick for one pole a row: the cuFFT convolution with the impulse
+    # response a^k, truncated where max|a|^L falls below 1e-7 (from y0 = 0)
+    amax = float(a.abs().max())
+    ir_len = int(np.ceil(np.log(1e-7) / np.log(amax)))
+    m = iir._fft_len_ir(LINREC_N, ir_len)
+    k = torch.arange(ir_len, device=dev, dtype=torch.float32)
+    h = torch.sign(a)[:, None] ** k * a.abs()[:, None] ** k   # built once
+
+    def library():
+        return torch.fft.irfft(torch.fft.rfft(b, m) * torch.fft.rfft(h, m),
+                               m)[:, :LINREC_N]
+
+    lib = library()
+    zero = iir.linrec(a, b)
+    torch.cuda.synchronize()
+    lib_rel = float((lib - zero).abs().max() / zero.abs().max())
+    library_ms = graph_ms(library)
+    main_t = timed["real_per_row"]
+    print(f"linrec [32, {LINREC_N}] one pole a row: kernel {main_t['ms']:.4f} "
+          f"ms (graph replay), {prof_ms:.4f} ms (profiler), {eager_ms:.4f} ms "
+          f"(eager); plain {plain_ms:.1f} ms; cuFFT yardstick (size {m}, "
+          f"impulse response {ir_len}) {library_ms:.4f} ms, {lib_rel:.2e} "
+          f"from the kernel; bound {main_t['bound_ms']:.6f} ms "
+          f"({main_t['bound_by']}), share {main_t['roofline_share']:.3f}; "
+          f"all four forms: {timed}")
+    return {"name": "linrec", "route": "cuda",
+            "source": "nelegan_tpu_torch/csrc/linrec.cu",
+            "replaces": "nelegan_tpu/ops/iir.py:38 (one_pole's "
+                        "associative_scan; also :83, one_pole_blocked's "
+                        "carries, and :240, linear_recurrence_2x2; no Pallas "
+                        "kernel)",
+            "max_abs_err": main["max_abs_err"], "ms": main_t["ms"],
+            "plain_ms": plain_ms, "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"], "library_ms": library_ms,
+            "library": f"irfft(rfft(b, {m}) * rfft(h, {m}))[:, :{LINREC_N}], "
+                       f"h = a^k truncated at {ir_len} (zero initial state)",
+            "library_rel_err": lib_rel, "profiler_ms": prof_ms,
+            "eager_ms": eager_ms, "roofline_share": main_t["roofline_share"],
+            "forms": timed, "shape": [32, LINREC_N],
+            "rel_err_vs_plain": main["rel_vs_plain"],
+            "rel_err_vs_host_f64": main["rel_vs_host_f64"],
+            "other_shapes": others, "middle_ear": me, "iir_users": users}
 
 
 # --------------------------------------------------------------- serving
@@ -1526,81 +1771,81 @@ def write_corpus(root: str) -> int:
     return k
 
 
-def infer_phase(dev) -> dict:
-    """cli.infer over a corpus written here, from a port checkpoint of the
-    seeded generator; every check raises.  Launch counts are zeroed before
-    the CLI runs and read after it and one `mmse_lsa_enhance` call."""
+def infer_phase(dev, tmp: str) -> dict:
+    """cli.infer over a corpus written under `tmp`, from a port checkpoint
+    of the seeded generator; every check raises.  Launch counts are zeroed
+    before the CLI runs and read after it and one `mmse_lsa_enhance`
+    call.  The corpus and checkpoint stay for the scoring phase."""
     cfg = Config()
     gen = seeded_generator(0).to(dev).eval()
     t0 = time.perf_counter()
-    BUILD.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
-        n_utts = write_corpus(f"{tmp}/corpus")
-        ck = save_seeded_checkpoint(f"{tmp}/ckpt", cfg, dev)
-        args = ["--test-clean", f"{tmp}/corpus/Clean", "--test-noise",
-                f"{tmp}/corpus/Noise", "--checkpoint", ck, "--metrics", "",
-                "--device", "cuda"]
-        kernels.reset_launches()
-        first = infer.main(args + ["--output", f"{tmp}/out"])
-        g = speech_signals()
-        spec = stft(torch.from_numpy(g[0] + g[1]).to(dev))
-        enh = mmse.mmse_lsa_enhance(spec)
-        torch.cuda.synchronize()
-        launches = dict(kernels.launches)
-        if not (len(first["written"]) == n_utts
-                and launches["imcra_scan"] == first["batches"] + 1):
-            raise AssertionError(f"infer: {len(first['written'])} files, "
-                                 f"{launches} launches for "
-                                 f"{first['batches']} batches + 1 MMSE call")
-        warm = infer.main(args + ["--output", f"{tmp}/out2"])
+    n_utts = write_corpus(f"{tmp}/corpus")
+    ck = save_seeded_checkpoint(f"{tmp}/ckpt", cfg, dev)
+    args = ["--test-clean", f"{tmp}/corpus/Clean", "--test-noise",
+            f"{tmp}/corpus/Noise", "--checkpoint", ck, "--metrics", "",
+            "--device", "cuda"]
+    kernels.reset_launches()
+    first = infer.main(args + ["--output", f"{tmp}/out"])
+    g = speech_signals()
+    spec = stft(torch.from_numpy(g[0] + g[1]).to(dev))
+    enh = mmse.mmse_lsa_enhance(spec)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    if not (len(first["written"]) == n_utts
+            and launches["imcra_scan"] == first["batches"] + 1):
+        raise AssertionError(f"infer: {len(first['written'])} files, "
+                             f"{launches} launches for "
+                             f"{first['batches']} batches + 1 MMSE call")
+    warm = infer.main(args + ["--output", f"{tmp}/out2"])
 
-        # 1. the files = enhance_batch on the same batches; 2. the plain
-        # IMCRA path within 1 LSB
-        index = CorpusIndex(sorted(get_filepaths(f"{tmp}/corpus/Clean")),
-                            f"{tmp}/corpus/Noise")
-        n_diff = n_total = max_lsb = 0
-        for batch in BucketedLoader(index, 8, shuffle=False)():
-            q = {}
-            with torch.inference_mode():
-                for key, psd in (("kernel", imcra.imcra_psd),
-                                 ("plain", plain_noise_psd)):
-                    feats = pipeline.featurize_batch(
-                        batch.clean, batch.noise, batch.lengths,
-                        cfg.train.p_power, cfg.imcra, device=dev,
-                        noise_psd=psd)
-                    wav, _, out_len = pipeline.enhance_batch(gen, feats,
-                                                             device=dev)
-                    q[key] = pipeline.pcm16_quantize_i16(wav).cpu().numpy()
-            for i, name in enumerate(batch.names):
-                m = int(out_len[i])
-                path = f"{tmp}/out/{name[:-4]}@1.wav"
-                got = (read_wav(path)[0] * 32768.0).astype(np.int16)
-                if not np.array_equal(got, q["kernel"][i, :m]):
-                    raise AssertionError(f"infer: {path} != enhance_batch")
-                d = np.abs(got.astype(np.int32) - q["plain"][i, :m])
-                n_diff += int((d > 0).sum())
-                n_total += d.size
-                max_lsb = max(max_lsb, int(d.max()))
-        print(f"infer: {n_utts} files equal enhance_batch on the same "
-              f"batches; against the plain IMCRA path {n_diff} of {n_total} "
-              f"samples differ, max {max_lsb} LSB")
-        if max_lsb > 1:
-            raise AssertionError("infer PCM16 beyond 1 LSB of the plain path")
+    # 1. the files = enhance_batch on the same batches; 2. the plain
+    # IMCRA path within 1 LSB
+    index = CorpusIndex(sorted(get_filepaths(f"{tmp}/corpus/Clean")),
+                        f"{tmp}/corpus/Noise")
+    n_diff = n_total = max_lsb = 0
+    for batch in BucketedLoader(index, 8, shuffle=False)():
+        q = {}
+        with torch.inference_mode():
+            for key, psd in (("kernel", imcra.imcra_psd),
+                             ("plain", plain_noise_psd)):
+                feats = pipeline.featurize_batch(
+                    batch.clean, batch.noise, batch.lengths,
+                    cfg.train.p_power, cfg.imcra, device=dev,
+                    noise_psd=psd)
+                wav, _, out_len = pipeline.enhance_batch(gen, feats,
+                                                         device=dev)
+                q[key] = pipeline.pcm16_quantize_i16(wav).cpu().numpy()
+        for i, name in enumerate(batch.names):
+            m = int(out_len[i])
+            path = f"{tmp}/out/{name[:-4]}@1.wav"
+            got = (read_wav(path)[0] * 32768.0).astype(np.int16)
+            if not np.array_equal(got, q["kernel"][i, :m]):
+                raise AssertionError(f"infer: {path} != enhance_batch")
+            d = np.abs(got.astype(np.int32) - q["plain"][i, :m])
+            n_diff += int((d > 0).sum())
+            n_total += d.size
+            max_lsb = max(max_lsb, int(d.max()))
+    print(f"infer: {n_utts} files equal enhance_batch on the same "
+          f"batches; against the plain IMCRA path {n_diff} of {n_total} "
+          f"samples differ, max {max_lsb} LSB")
+    if max_lsb > 1:
+        raise AssertionError("infer PCM16 beyond 1 LSB of the plain path")
 
-        # 3. mmse_lsa_enhance's IMCRA (its own config) = the plain loop
-        mcfg = ImcraConfig(alpha_dd=0.92, xi_min=10.0 ** (-25.0 / 20.0),
-                           is_frames=10)
-        y2 = (spec.real * spec.real
-              + spec.imag * spec.imag).T[None].contiguous()
-        k_psd = imcra.imcra_estimate_psd(spec, mcfg).T[None]
-        p_psd = imcra.imcra_scan_plain(y2, None, 0, mcfg)[0]
-        if not (torch.equal(k_psd, p_psd) and torch.isfinite(enh).all()
-                and enh.shape == spec.shape):
-            raise AssertionError("mmse_lsa_enhance: kernel IMCRA != plain")
-        print(f"mmse_lsa_enhance on {list(spec.shape)}: its IMCRA (is_frames "
-              f"10) bit-equal to the plain loop")
+    # 3. mmse_lsa_enhance's IMCRA (its own config) = the plain loop
+    mcfg = ImcraConfig(alpha_dd=0.92, xi_min=10.0 ** (-25.0 / 20.0),
+                       is_frames=10)
+    y2 = (spec.real * spec.real
+          + spec.imag * spec.imag).T[None].contiguous()
+    k_psd = imcra.imcra_estimate_psd(spec, mcfg).T[None]
+    p_psd = imcra.imcra_scan_plain(y2, None, 0, mcfg)[0]
+    if not (torch.equal(k_psd, p_psd) and torch.isfinite(enh).all()
+            and enh.shape == spec.shape):
+        raise AssertionError("mmse_lsa_enhance: kernel IMCRA != plain")
+    print(f"mmse_lsa_enhance on {list(spec.shape)}: its IMCRA (is_frames "
+          f"10) bit-equal to the plain loop")
     res = {"utterances": n_utts, "batches": first["batches"],
-           "launches": launches, "pcm16_diff_samples": n_diff,
+           "checkpoint": ck, "launches": launches,
+           "pcm16_diff_samples": n_diff,
            "pcm16_total_samples": n_total, "max_lsb": max_lsb,
            "phase_s": time.perf_counter() - t0}
     for key, r in (("first", first), ("warm", warm)):
@@ -1617,6 +1862,226 @@ def infer_phase(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- scoring
+def rel_errors(got: dict, want: dict) -> dict:
+    """|got - want| / max(|want|, 1) per metric: relative for SIIB and
+    HASPI, absolute for ESTOI, which lies in [-1, 1] and can be 0 (the
+    reference package's normalisation, tests/test_metrics_bucketed.py)."""
+    return {m: abs(got[m] - want[m]) / max(abs(want[m]), 1.0) for m in want}
+
+
+def max_rel(rows_got, rows_want) -> dict:
+    errs = [rel_errors(g, w) for g, w in zip(rows_got, rows_want)]
+    return {m: max(e[m] for e in errs) for m in errs[0]}
+
+
+def siib_f32_klt(clean: np.ndarray, noise: np.ndarray, enh: np.ndarray,
+                 dev) -> float:
+    """The control for SIIB: the same score with its KLT and capacity in
+    float32 (the reference package's arithmetic without x64)."""
+    n = min(len(clean), len(noise), len(enh))
+    x, y, _ = siib_prepare(clean[:n], noise[:n] + enh[:n])
+    xt = torch.as_tensor(x, device=dev)[None]
+    yt = torch.as_tensor(y, device=dev)[None]
+    vx, vy, scnt = _stack_pair(xt, yt, None)
+    vx, vy, scnt = vx.float(), vy.float(), scnt.float()
+    return float(_capacity(vx, vy, _klt(vx, scnt))[0])
+
+
+def timed_corpus(triple, metric_names) -> dict:
+    """score_corpus (vmap_chunk 8) of the corpus: host clock around the
+    call, which ends in its one device-to-host copy, and CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    scores = metrics.score_corpus(*triple, norm=False, metrics=metric_names,
+                                  vmap_chunk=8, device="cuda")
+    end.record()
+    end.synchronize()
+    host = time.perf_counter() - t0
+    return {"host_s": host, "events_s": start.elapsed_time(end) / 1e3,
+            "utterances_per_s": len(scores) / host, "scores": scores}
+
+
+def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
+    """SIIB, HASPI and ESTOI of the infer phase's 24 utterances on the card
+    through `cli/infer --metrics` (the path; launch counts zeroed before
+    and read after) and `score_corpus`; every check raises."""
+    t0 = time.perf_counter()
+    corpus = f"{tmp}/corpus"
+    args = ["--test-clean", f"{corpus}/Clean", "--test-noise",
+            f"{corpus}/Noise", "--checkpoint", inferred["checkpoint"],
+            "--metrics", ",".join(SCORE_METRICS), "--subsets", "Cafeteria",
+            "--output", f"{tmp}/scored", "--device", "cuda"]
+    kernels.reset_launches()
+    cli = infer.main(args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    sub = cli["scores"]["Cafeteria"]
+    names, batch = sub["names"], sub["scores"]
+    n = len(names)
+    if not (n == inferred["utterances"]
+            and launches["imcra_scan"] == cli["batches"]
+            and all(np.isfinite(v) for r in batch for v in r.values())):
+        raise AssertionError(f"scoring CLI: {n} scored, {launches} launches "
+                             f"for {cli['batches']} batches")
+    print(f"cli/infer --metrics: {n} utterances scored in {sub['seconds']:.3f}"
+          f" s on the card (first scoring of the run); means {sub['means']}; "
+          f"launches {launches}")
+
+    def read(sub_dir, name):
+        return read_wav(f"{sub_dir}/{name}")[0]
+
+    bases = [nm.replace("@1", "") for nm in names]
+    cleans = [read(f"{corpus}/Clean", b) for b in bases]
+    noises = [read(f"{corpus}/Noise", b) for b in bases]
+    enhs = [read(f"{tmp}/scored", nm) for nm in names]
+    triple = (cleans, noises, enhs)
+
+    # times: each metric alone, then all three, cold (first call at the
+    # bucketed shapes) and warm
+    times = {}
+    for key, mm in [(m, (m,)) for m in SCORE_METRICS] + [("all",
+                                                          SCORE_METRICS)]:
+        cold, warm = timed_corpus(triple, mm), timed_corpus(triple, mm)
+        times[key] = {k: {f: v for f, v in r.items() if f != "scores"}
+                      for k, r in (("cold", cold), ("warm", warm))}
+    corpus_scores = warm["scores"]
+    t1 = time.perf_counter()
+    warm_batch = metrics.score_batch(*triple, norm=False, device="cuda")
+    times["score_batch_warm"] = {"host_s": time.perf_counter() - t1}
+    times["score_batch_warm"]["utterances_per_s"] = (
+        n / times["score_batch_warm"]["host_s"])
+    if warm_batch != batch:
+        raise AssertionError("score_batch differs from the CLI's scores")
+
+    # 1. score_corpus (padded rows, n_valid) against score_batch (trimmed)
+    corpus_err = {"estoi": 0.0, "haspi": 0.0, "siib": 0.0}
+    for c, b in zip(corpus_scores, batch):
+        for m in CORPUS_BARS:
+            err = abs(c[m] - b[m]) / max(abs(b[m]), 1.0)
+            corpus_err[m] = max(corpus_err[m], err)
+        corpus_err["siib"] = max(corpus_err["siib"], abs(c["siib"] - b["siib"])
+                                 / max(b["siib"], 10.0))
+    print(f"score_corpus against score_batch, largest error: {corpus_err}")
+    if not (all(corpus_err[m] < CORPUS_BARS[m] for m in CORPUS_BARS)
+            and corpus_err["siib"] < 0.05):
+        raise AssertionError(f"score_corpus vs score_batch: {corpus_err}")
+
+    # 2. a clean-cache hit against its cold fill and the pair path
+    cache = {}
+    cold = metrics.score_corpus(*triple, norm=False, vmap_chunk=8,
+                                device="cuda", clean_cache=cache,
+                                clean_keys=bases)
+    t1 = time.perf_counter()
+    hit = metrics.score_corpus(*triple, norm=False, vmap_chunk=8,
+                               device="cuda", clean_cache=cache,
+                               clean_keys=bases)
+    hit_s = time.perf_counter() - t1
+    cache_err = max_rel(hit, corpus_scores)
+    if hit != cold or not all(v < CACHE_BAR for v in cache_err.values()):
+        raise AssertionError(f"clean cache: hit == cold {hit == cold}, "
+                             f"against the pair path {cache_err}")
+    print(f"clean-cache hit: equal to its cold fill; against the pair path "
+          f"{cache_err}; {len(cache)} entries; warm {hit_s:.3f} s")
+
+    # 3. the card's float32 against the CPU's float64, one per bucket
+    pick = [names.index(nm) for nm in names if nm.startswith(("u00", "u08",
+                                                              "u16"))]
+    f64 = [tuple(lst[i].astype(np.float64) for lst in triple) for i in pick]
+    t1 = time.perf_counter()
+    cpu = metrics.score_batch(*zip(*f64), norm=False, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    card = [batch[i] for i in pick]
+    card_err = max_rel(card, cpu)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = metrics.score_batch(*zip(*[tuple(lst[i] for lst in triple)
+                                          for i in pick]),
+                                   norm=False, device="cuda")
+    finally:
+        disable_tf32()
+    control = max_rel(tf32, cpu)
+    klt32 = [{"siib": siib_f32_klt(*(lst[i] for lst in triple), dev)}
+             for i in pick]
+    control["siib"] = max_rel(klt32, [{"siib": r["siib"]}
+                                      for r in cpu])["siib"]
+    control["tf32_siib"] = max_rel(tf32, cpu)["siib"]
+    haspi_ref_bar = card_err["haspi"] < HASPI_F32_BAR
+    per_utt = [{"name": names[i], "cpu_f64": w, "card": g, "tf32": t,
+                "siib_f32_klt": k["siib"]}
+               for i, w, g, t, k in zip(pick, cpu, card, tf32, klt32)]
+    print(f"scores of {json.dumps(per_utt)}")
+    print(f"card float32 against CPU float64 ({[names[i] for i in pick]}): "
+          f"{card_err}, bars {SCORE_BARS}; controls (ESTOI, HASPI: TF32 on; "
+          f"SIIB: KLT in float32) {control}; CPU float64 took {cpu_s:.1f} s")
+    if not all(card_err[m] < SCORE_BARS[m] for m in SCORE_BARS):
+        raise AssertionError(f"card scores beyond the bars: {card_err}")
+    if not all(control[m] >= SCORE_BARS[m] for m in SCORE_BARS):
+        raise AssertionError(f"a control passes the bars: {control}")
+
+    # 4. the ear model on the card against the golden
+    g = np.load(REPO / "tests" / "goldens" / "ear_model.npz")
+    out = ear_model(torch.as_tensor(g["x24"].astype(np.float32), device=dev),
+                    torch.as_tensor(g["y24"].astype(np.float32), device=dev))
+    ear_err = {k: float(np.abs(v.cpu().numpy() - g[k]).max()
+                        / np.abs(g[k]).max())
+               for v, k in ((out.xdb, "xdB"), (out.ydb, "ydB"),
+                            (out.xbm, "xBM"), (out.ybm, "yBM"))}
+    print(f"ear model on the card (float32) against ear_model.npz: {ear_err}")
+    if not all(v < EAR_GOLDEN_BAR for v in ear_err.values()):
+        raise AssertionError(f"ear model golden on the card: {ear_err}")
+
+    # 5. one profile of a warm score_corpus; SIIB's eigh share
+    warm_all_ms = times["all"]["warm"]["host_s"] * 1e3
+    prof = profile_step(lambda: metrics.score_corpus(
+        *triple, norm=False, vmap_chunk=8, device="cuda"), warm_all_ms,
+        reps=1, label="scoring_profile")
+    eigh_ms = 0.0
+    lens = np.array([min(len(c), len(z), len(e)) for c, z, e in
+                     zip(*triple)])
+    for blen in sorted({int(-(-m // 16384) * 16384) for m in lens}):
+        rows = [i for i, m in enumerate(lens)
+                if -(-m // 16384) * 16384 == blen]
+        sv = [metrics.siib_tiled_length(cleans[i][:lens[i]]) for i in rows]
+        sb = -(-max(sv) // 16384) * 16384
+        ref = torch.zeros(len(rows), blen, device=dev)
+        for j, i in enumerate(rows):
+            ref[j, :lens[i]] = torch.as_tensor(cleans[i][:lens[i]])
+        nv = torch.as_tensor(lens[rows], device=dev)
+        tiled = metrics._tile(ref, nv, torch.as_tensor(sv, device=dev), sb)
+        vx, _, scnt = _stack_pair(tiled, None,
+                                  torch.as_tensor(sv, device=dev))
+        cov = (vx.transpose(-1, -2) @ vx) / scnt[:, None, None]
+        eigh_ms += cuda_ms(lambda: torch.linalg.eigh(cov), calls=2,
+                           samples=3, warmup=1)
+    siib_ms = times["siib"]["warm"]["events_s"] * 1e3
+    res = {"utterances": n, "launches": launches, "cli_means": sub["means"],
+           "cli_first_scoring_s": sub["seconds"],
+           "cli_first_utterances_per_s": n / sub["seconds"],
+           "times": times, "corpus_vs_batch": corpus_err,
+           "cache_vs_pair": cache_err, "cache_hit_s": hit_s,
+           "card_vs_cpu_f64": card_err, "bars": SCORE_BARS,
+           "scores_checked": per_utt,
+           "control": control, "haspi_within_reference_bar": haspi_ref_bar,
+           "cpu_f64_s": cpu_s, "ear_golden": ear_err,
+           "busy_share": prof["busy_share"],
+           "device_ms": prof["device_ms_per_batch"],
+           "device_ops": prof["device_ops_per_batch"], "top": prof["top"],
+           "siib_eigh_ms": eigh_ms, "siib_warm_ms": siib_ms,
+           "siib_eigh_share": eigh_ms / siib_ms,
+           "phase_s": time.perf_counter() - t0}
+    print(f"scoring: warm {times['all']['warm']['utterances_per_s']:.1f} "
+          f"utterances/s (all three, score_corpus), cold "
+          f"{times['all']['cold']['utterances_per_s']:.1f}; busy "
+          f"{res['busy_share']:.3f}; SIIB eigh {eigh_ms:.2f} of {siib_ms:.2f}"
+          f" ms; phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1628,15 +2093,25 @@ def main() -> None:
     secs = kernels.build()
     print(f"built {sorted(kernels.KERNELS)} in {secs:.2f} s")
 
-    records = [imcra_phase(dev), cascade_phase(dev)]
+    kernels.reset_launches()
+    records = [imcra_phase(dev), cascade_phase(dev), linrec_phase(dev)]
+    checked = dict(kernels.launches)
     serving = serving_phase(dev)
     training = training_phase(dev)
     streamed = streaming_phase(dev)
-    inferred = infer_phase(dev)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        inferred = infer_phase(dev, tmp)
+        scored = scoring_phase(dev, tmp, inferred)
     for rec in records:
         rec["launches"] = serving["launches"][rec["name"]]
         rec["training_launches"] = training["launches"][rec["name"]]
         rec["infer_launches"] = inferred["launches"][rec["name"]]
+        rec["scoring_launches"] = scored["launches"][rec["name"]]
+        rec["kernel_phase_launches"] = checked[rec["name"]]
+    # linrec's own slice is scoring, which folds the middle ear into the
+    # ear model's spectrum: no path of the port launches it yet
+    records[2]["launches"] = scored["launches"]["linrec"]
     records[0]["training_featurized_batches"] = training["featurized_batches"]
     records[0]["streaming_steps"] = streamed["steps"]
     for rec in records:
@@ -1647,6 +2122,7 @@ def main() -> None:
     print(json.dumps({"training": training}))
     print(json.dumps({"streaming": streamed}))
     print(json.dumps({"infer": inferred}))
+    print(json.dumps({"scoring": scored}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,15 @@ the same path there:
   device.py   device=None -> CUDA (raises without a GPU); TF32 switch
   dsp/        STFT, ERB band matrices, IMCRA (plain loop + CUDA kernel),
               single-utterance features and resynthesis, P.56 active
-              speech level, MMSE estimators, reverberation helpers
+              speech level, MMSE estimators, reverberation helpers,
+              polyphase resampling
   models/     the generator and spectral-norm discriminators (reference
               state-dict keys), weight and train-state import, the
               reference `chkpt_*.pt` reader and writer
-  ops/        gammatone one-pole cascade (plain + CUDA kernel)
+  ops/        gammatone one-pole cascade; IIR filters over the first-order
+              recurrence linrec (each a plain version + CUDA kernel)
+  metrics/    ESTOI, SIIB, HASPI v1/v2 and HASQI v2; score_pair,
+              score_batch and bucketed score_corpus; calibrations
   pipeline.py batched featurize -> generator -> resynthesis
   streaming.py frame streaming at 32 ms latency (IMCRA carried in the
               kernel's state layout)
@@ -18,8 +22,8 @@ the same path there:
               bucketed corpus loading
   train/      the GAN training steps, exact-resume checkpoints (also
               reading the reference package's .msgpack files), replay
-  cli/        serve (dynamic-batching server), infer (corpus), stream,
-              export_torch
+  cli/        serve (dynamic-batching server), infer (corpus, scoring),
+              stream, export_torch
   kernels/    nvcc build, ctypes binding and launch counts of csrc/*.cu
 
 It imports torch, numpy and scipy only; nothing of the reference package,

@@ -11,10 +11,15 @@ corpus comes back in one device-to-host copy at the end.
     python -m nelegan_tpu_torch.cli.infer \\
         --test-clean .../Test/Clean --test-noise .../Test/Noise \\
         --checkpoint ./chkpt [--torch-checkpoint chkpt_GD.pt] \\
-        --output ./output_wav [--device cuda]
+        --output ./output_wav [--metrics siib,haspi,estoi] \\
+        [--subsets Cafeteria,AirportAnnouncement] [--device cuda]
 
-Scoring (`--metrics`) waits for the metric engines, which are not ported
-yet: `--metrics ""`, the default, writes the wavs only.
+`--metrics` takes any subset of siib,haspi,estoi, the metrics ported so
+far (PESQ and ViSQOL are not, and asking for them fails); the default ""
+writes the wavs only.  With metrics, the written files of each noise-type
+subset are read back and scored raw (norm=False) by `metrics.score_batch`
+on the same device, and each subset's means are printed as the reference
+package's CLI prints them.
 """
 from __future__ import annotations
 
@@ -22,13 +27,16 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
 from nelegan_tpu_torch import pipeline
 from nelegan_tpu_torch.data.pipeline import (BucketedLoader, CorpusIndex,
                                              get_filepaths)
-from nelegan_tpu_torch.data.wavio import write_wav_pcm16
+from nelegan_tpu_torch.data.wavio import read_wav, write_wav_pcm16
 from nelegan_tpu_torch.device import disable_tf32, resolve_device
+from nelegan_tpu_torch.metrics import (ALL_METRICS, PORTED_METRICS,
+                                       not_ported, score_batch)
 from nelegan_tpu_torch.train.checkpoint import load_generator
 
 
@@ -46,8 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-utts", type=int, default=960)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--metrics", default="",
-                   help="metrics to score; none are ported yet, so only "
-                        "the default '' (write wavs only) is accepted")
+                   help="comma-separated subset of siib,haspi,estoi (the "
+                        "ported metrics; pesq and visqol are not ported); "
+                        "'' (the default) writes the wavs only")
+    p.add_argument("--subsets", default="Cafeteria,AirportAnnouncement",
+                   help="noise-type subsets whose metric means are printed")
     p.add_argument("--device", default="cuda",
                    help="torch device; without a GPU pass 'cpu' explicitly")
     return p
@@ -56,11 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Runs the CLI; returns the paths written and the time split."""
     args = build_parser().parse_args(argv)
-    if args.metrics.strip():
-        raise SystemExit(f"--metrics {args.metrics!r}: the metric engines "
-                         f"(SIIB, HASPI, ESTOI, PESQ, ViSQOL) are not ported "
-                         f"to nelegan_tpu_torch yet; pass --metrics '' to "
-                         f"write the enhanced wavs only")
+    metrics = tuple(m.strip() for m in args.metrics.split(",") if m.strip())
+    for m in metrics:
+        if m not in PORTED_METRICS:
+            if m in ALL_METRICS:
+                raise SystemExit(f"--metrics {m}: {not_ported(m)}")
+            raise SystemExit(f"--metrics {m}: unknown metric; choose from "
+                             f"{','.join(PORTED_METRICS)}")
     if not (args.checkpoint or args.torch_checkpoint):
         raise SystemExit("need --checkpoint or --torch-checkpoint")
     if not os.path.isdir(args.test_clean):
@@ -122,7 +135,43 @@ def main(argv=None) -> dict:
           f"{total_s:.3f} s: reading wavs {read_s:.3f} s, dispatch "
           f"{res['dispatch_s']:.3f} s, device wait and copy {fetch_s:.3f} s, "
           f"writing wavs {write_s:.3f} s")
+    if metrics:
+        res["scores"] = score_subsets(args, written, metrics, cfg.train.fs,
+                                      device)
     return res
+
+
+def score_subsets(args, written, metrics, fs: int, device) -> dict:
+    """Per noise-type subset: read back the enhanced files with their
+    clean and noise inputs, score them raw, print the means.  Returns
+    {subset: {"names", "scores", "means", "seconds"}}."""
+    out = {}
+    with torch.inference_mode():
+        for subset in [s for s in args.subsets.split(",") if s]:
+            paths = [p for p in written if subset in p]
+            if not paths:
+                continue
+            t0 = time.perf_counter()
+            cleans, noises, enhs = [], [], []
+            for p in paths:
+                name = os.path.basename(p).split("@")[0] + ".wav"
+                cleans.append(read_wav(os.path.join(args.test_clean,
+                                                    name))[0])
+                noises.append(read_wav(os.path.join(args.test_noise,
+                                                    name))[0])
+                enhs.append(read_wav(p)[0])
+            scores = score_batch(cleans, noises, enhs, fs, norm=False,
+                                 metrics=metrics, device=device)
+            means = {m: float(np.mean([s[m] for s in scores]))
+                     for m in metrics}
+            out[subset] = {"names": [os.path.basename(p) for p in paths],
+                           "scores": scores, "means": means,
+                           "seconds": time.perf_counter() - t0}
+            print(f"{subset}:")
+            print("  " + ", ".join(f"{m.upper()} is {means[m]:.3f}"
+                                   for m in metrics))
+            print("======")
+    return out
 
 
 if __name__ == "__main__":

@@ -106,12 +106,26 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MetricCalibration:
+    """Logistic score->[0,1] maps, params (a, b): 1/(1+exp(a*(x-b)))
+    (reference: intel.py:102-160, audio_util.py:259-262).  ViSQOL's centre
+    b = 3.21 is the reference package's refit (its CALIBRATION.md §1)."""
+    siib: Tuple[float, float] = (-0.06, 32.0)
+    haspi: Tuple[float, float] = (-0.95, 2.8)
+    estoi: Tuple[float, float] = (-8.0, 0.25)
+    pesq: Tuple[float, float] = (-1.5, 2.5)
+    visqol: Tuple[float, float] = (-2.5, 3.21)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     stft: StftConfig = dataclasses.field(default_factory=StftConfig)
     band: BandConfig = dataclasses.field(default_factory=BandConfig)
     imcra: ImcraConfig = dataclasses.field(default_factory=ImcraConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    calib: MetricCalibration = dataclasses.field(
+        default_factory=MetricCalibration)
 
 
 def config_to_dict(cfg: Config) -> dict:
@@ -122,8 +136,8 @@ def config_to_dict(cfg: Config) -> dict:
 
 def config_from_dict(d: dict) -> Config:
     """Inverse of `config_to_dict`.  Unknown sections and keys (a newer
-    writer, or the reference package's `calib` and `parallel` sections) are
-    ignored; missing keys keep their defaults."""
+    writer, or the reference package's `parallel` section) are ignored;
+    missing keys keep their defaults."""
     def build(cls, sub):
         kw = {}
         for f in dataclasses.fields(cls):
@@ -137,4 +151,5 @@ def config_from_dict(d: dict) -> Config:
                   band=build(BandConfig, d.get("band")),
                   imcra=build(ImcraConfig, d.get("imcra")),
                   model=build(ModelConfig, d.get("model")),
-                  train=build(TrainConfig, d.get("train")))
+                  train=build(TrainConfig, d.get("train")),
+                  calib=build(MetricCalibration, d.get("calib")))

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from nelegan_tpu_torch import kernels
 from nelegan_tpu_torch.config import ImcraConfig
+from nelegan_tpu_torch.device import resolve_device
 
 _TINY = 1e-30
 # Rows of the packed kernel state [B, N_STATE, K]: ten per-bin quantities,
@@ -122,8 +123,10 @@ def _min_track(buf: torch.Tensor, sw: torch.Tensor, u: torch.Tensor,
 
 
 def imcra_init(k: int, dtype: torch.dtype, cfg: ImcraConfig = ImcraConfig(),
-               batch: tuple = (), device="cpu") -> ImcraState:
-    """Fresh carry for `imcra_step` / `imcra_scan` (also a streaming state)."""
+               batch: tuple = (), device=None) -> ImcraState:
+    """Fresh carry for `imcra_step` / `imcra_scan` (also a streaming state)
+    on `device` (None: CUDA, raising without it)."""
+    device = resolve_device(device)
     def z():
         return torch.zeros(batch + (k,), dtype=dtype, device=device)
 

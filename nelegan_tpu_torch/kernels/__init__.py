@@ -53,6 +53,11 @@ KERNELS: Dict[str, Kernel] = {
     # x, a, y, rows, n, stream
     "gammatone_cascade": Kernel("cascade.cu", "gammatone_cascade_f32",
                                 (_P, _P, _P, _I, _I, _P)),
+    # a, b, y0, y, rows, n, is_complex, a_per_step, stream: the first-order
+    # recurrence y[n] = a[n] y[n-1] + b[n] of ops/iir.py; a NULL y0 starts
+    # every row from 0.
+    "linrec": Kernel("linrec.cu", "linrec",
+                     (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     # counts, seed, blocks, iters, stream: the card's check of the IMCRA
     # kernel's fast division against IEEE division (same library).
     "imcra_divide_check": Kernel("imcra.cu", "imcra_divide_check",

@@ -1,0 +1,280 @@
+"""The intelligibility metrics scored on the card: SIIB, HASPI v2, ESTOI.
+
+Counterpart of `nelegan_tpu/metrics/__init__.py`.  `score_pair` scores one
+(clean, noise, enhanced) triple, `score_batch` a list of them, and
+`score_corpus` a corpus in length buckets, `vmap_chunk` utterances to a
+batch, each row with its `n_valid`.  Wrapper semantics follow the
+reference's intel.py: the intelligibility metrics compare clean speech
+with enhanced speech plus noise (the near-end listener hears both), and
+``norm=True`` applies the logistic calibrations (intel.py:102-160) of a
+`MetricCalibration`.
+
+PESQ and ViSQOL, the quality metrics, are not ported yet; asking for them
+raises and names the ROADMAP item that ports them, as do the reference
+package's `CleanSidePool`, `enhanced_keys` and `mesh`.  What the reference
+package does only for its remote-device tunnel (PCM16 upload packing,
+timing probes, power-of-two row padding) changes no score and is not here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+
+from nelegan_tpu_torch.config import MetricCalibration
+from nelegan_tpu_torch.device import resolve_device
+from nelegan_tpu_torch.dsp.resample import resample_poly
+from nelegan_tpu_torch.metrics.calibrate import (  # noqa: F401
+    logistic, make_mappers, make_mappers_np)
+from nelegan_tpu_torch.metrics.estoi import (
+    estoi, estoi_10k, estoi_clean_10k, estoi_from_clean_10k)
+from nelegan_tpu_torch.metrics.haspi import (  # noqa: F401
+    haspi_v1, haspi_v1_24k, haspi_v2, haspi_v2_24k, haspi_v2_clean_24k,
+    haspi_v2_from_clean_24k, hasqi_v2, hasqi_v2_24k, resample_to_24k)
+from nelegan_tpu_torch.metrics.siib import (
+    HOP as SIIB_HOP, _vad_mask, siib, siib_gauss_16k, siib_gauss_16k_with_klt,
+    siib_klt_16k)
+
+ALL_METRICS = ("siib", "haspi", "estoi", "pesq", "visqol")
+PORTED_METRICS = ("siib", "haspi", "estoi")
+ROADMAP_ITEM = ("ROADMAP.md, Open items, section 1, item 1: PESQ "
+                "(metrics/pesq.py), then ViSQOL (metrics/visqol.py), then "
+                "metrics/clean_pool.py")
+# the longest tiled SIIB row (~131 s): one mostly silent utterance would
+# otherwise size every row of its chunk
+MAX_TILED = 2_097_152
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to nelegan_tpu_torch "
+                               f"yet; see {ROADMAP_ITEM}")
+
+
+def _check_metrics(metrics: Sequence[str]) -> None:
+    for m in metrics:
+        if m in ("pesq", "visqol"):
+            raise not_ported(f"metric {m!r}")
+        if m not in ALL_METRICS:
+            raise ValueError(f"unknown metric {m}")
+
+
+def score_pair_async(clean, noise, enhanced, fs: int = 16000,
+                     norm: bool = True,
+                     metrics: Sequence[str] = PORTED_METRICS, device=None,
+                     calib: MetricCalibration = MetricCalibration()
+                     ) -> Dict[str, Any]:
+    """Like `score_pair`, but returns 0-d tensors on the device, not
+    fetched.  Signals are host arrays; they are scored in their own dtype
+    (float32 at least) on `device` (None: CUDA)."""
+    _check_metrics(metrics)
+    dev = resolve_device(device)
+    n = min(len(clean), len(enhanced), len(noise))
+    clean = np.asarray(clean)[:n]
+    noisy_enh = np.asarray(enhanced)[:n] + np.asarray(noise)[:n]
+    mappers = make_mappers(calib)
+
+    def on_dev(a):
+        return torch.as_tensor(a, device=dev)
+
+    out: Dict[str, Any] = {}
+    for m in metrics:
+        if m == "siib":
+            raw = siib(clean, noisy_enh, fs, device=dev)
+        elif m == "haspi":
+            raw = haspi_v2(on_dev(clean), fs, on_dev(noisy_enh), fs)[0]
+        else:
+            raw = estoi(on_dev(clean), on_dev(noisy_enh), fs)
+        out[m] = mappers[m](raw) if norm else raw
+    return out
+
+
+def score_pair(clean, noise, enhanced, fs: int = 16000, norm: bool = True,
+               metrics: Sequence[str] = PORTED_METRICS, device=None,
+               calib: MetricCalibration = MetricCalibration()
+               ) -> Dict[str, float]:
+    """The requested metrics of one utterance triple (reference read_STOI,
+    read_SIIB, read_HASPI, audio_util.py:120-228): trimmed to the shortest
+    signal, the intelligibility metrics hear enhanced + noise."""
+    return {k: float(v) for k, v in score_pair_async(
+        clean, noise, enhanced, fs, norm, metrics, device, calib).items()}
+
+
+def score_batch(clean_list, noise_list, enhanced_list, fs: int = 16000,
+                norm: bool = True, metrics: Sequence[str] = PORTED_METRICS,
+                device=None, calib: MetricCalibration = MetricCalibration()):
+    """Score a list of triples: every metric is launched for every triple,
+    and the scores come to the host in one copy at the end."""
+    pending = [score_pair_async(c, n, e, fs, norm, metrics, device, calib)
+               for c, n, e in zip(clean_list, noise_list, enhanced_list)]
+    if not pending:
+        return []
+    keys = list(pending[0])
+    vals = torch.stack([torch.stack([p[k].to(torch.float64) for k in keys])
+                        for p in pending]).cpu().numpy()
+    return [{k: float(vals[i, j]) for j, k in enumerate(keys)}
+            for i in range(len(pending))]
+
+
+def _nv10(nv: torch.Tensor) -> torch.Tensor:
+    return -(-nv * 5 // 8)
+
+
+def _nv24(nv: torch.Tensor) -> torch.Tensor:
+    return -(-nv * 3 // 2)
+
+
+def _tile(sig: torch.Tensor, nv: torch.Tensor, sv: torch.Tensor, sb: int
+          ) -> torch.Tensor:
+    """Each row's valid prefix repeated to `sv` samples, zeros to `sb`."""
+    pos = torch.arange(sb, device=sig.device)
+    idx = pos[None, :] % torch.clamp_min(nv, 1)[:, None]
+    return torch.gather(sig, 1, idx) * (pos[None, :] < sv[:, None]).to(
+        sig.dtype)
+
+
+def siib_tiled_length(clean: np.ndarray, fs: int = 16000) -> int:
+    """The length SIIB scores an utterance of `clean` at: the tile-to-20-s
+    rule's factor times its length, capped at MAX_TILED."""
+    n = len(clean)
+    active = _vad_mask(clean).sum() / (fs / SIIB_HOP)
+    m_fac = (max(int(np.floor(25.0 / max(active, 0.25))), 1)
+             if active < 20 else 1)
+    return min(m_fac, max(MAX_TILED // max(n, 1), 1)) * n
+
+
+def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
+                 norm: bool = True, metrics: Sequence[str] = PORTED_METRICS,
+                 bucket_quant: int = 16384, vmap_chunk: int = 8, mesh=None,
+                 clean_cache=None, clean_keys: Sequence = None,
+                 enhanced_keys: Sequence = None, device=None,
+                 calib: MetricCalibration = MetricCalibration()):
+    """Bucketed corpus scoring.
+
+    Utterances are zero-padded to the next multiple of `bucket_quant` and
+    scored `vmap_chunk` rows at a time as one batch per metric, each row
+    with its `n_valid`, so a padded row scores as its trimmed signal.  SIIB
+    tiles each row on the device to its tiled length (the tile-to-20-s
+    rule, decided on the host) inside a buffer of the chunk's tiled bucket.
+
+    `clean_cache` (a plain mapping) with `clean_keys` (one hashable key per
+    utterance) keeps the clean-side halves of ESTOI, HASPI v2 and SIIB (its
+    KLT basis) across calls, on the device, keyed as the reference package
+    keys them: ``(name, blen) + ((clean_key, n_valid), ...)`` per chunk,
+    and the SIIB tiling decision as ``("siib-vad", clean_key, n_valid)``.
+    """
+    _check_metrics(metrics)
+    if mesh is not None:
+        raise not_ported("score_corpus over a mesh (torch.distributed)")
+    if clean_cache is not None and hasattr(clean_cache, "ensure"):
+        raise not_ported("a CleanSidePool clean_cache")
+    if enhanced_keys is not None:
+        raise not_ported("score_corpus's enhanced_keys")
+    assert fs == 16000
+    dev = resolve_device(device)
+    n_utts = len(clean_list)
+    lens = [min(len(c), len(n), len(e)) for c, n, e in
+            zip(clean_list, noise_list, enhanced_list)]
+    dtype = np.result_type(np.float32, *(np.asarray(s).dtype for lst in
+                                         (clean_list, noise_list,
+                                          enhanced_list) for s in lst))
+    results = [dict() for _ in range(n_utts)]
+    mappers = make_mappers_np(calib)
+
+    buckets: Dict[int, list] = {}
+    for i, ln in enumerate(lens):
+        buckets.setdefault(-(-ln // bucket_quant) * bucket_quant, []).append(i)
+    chunked = []
+    for blen, idxs in buckets.items():
+        for i in range(0, len(idxs), vmap_chunk):
+            chunk = idxs[i:i + vmap_chunk]
+            if len(chunk) < vmap_chunk and len(idxs) >= vmap_chunk:
+                chunk = idxs[-vmap_chunk:]     # full-width tail (recompute)
+            chunked.append((blen, chunk))
+
+    pending = []
+    for blen, idxs in chunked:
+        nv_h = np.array([lens[i] for i in idxs], np.int64)
+
+        def pack(src_list):
+            buf = np.zeros((len(idxs), blen), dtype)
+            for j, i in enumerate(idxs):
+                buf[j, :lens[i]] = src_list[i][:lens[i]]
+            return torch.as_tensor(buf, device=dev)
+
+        ref, noz, enh = (pack(lst) for lst in
+                         (clean_list, noise_list, enhanced_list))
+        ne = noz + enh
+        nv = torch.as_tensor(nv_h, device=dev)
+        key_tuple = None
+        if clean_cache is not None and clean_keys is not None:
+            row_keys = [(clean_keys[i], int(nv_h[j]))
+                        for j, i in enumerate(idxs)]
+            key_tuple = (blen,) + tuple(row_keys)
+
+        def cached(name, compute):
+            k = (name,) + key_tuple
+            v = clean_cache.get(k)
+            if v is None:
+                v = compute()
+                clean_cache[k] = v
+            return v
+
+        out: Dict[str, torch.Tensor] = {}
+        if "estoi" in metrics:
+            ne10 = resample_poly(ne, 5, 8)
+            if key_tuple is None:
+                out["estoi"] = estoi_10k(resample_poly(ref, 5, 8), ne10,
+                                         _nv10(nv))
+            else:
+                ec = cached("estoi-clean", lambda: estoi_clean_10k(
+                    resample_poly(ref, 5, 8), _nv10(nv)))
+                out["estoi"] = estoi_from_clean_10k(ne10, ec, _nv10(nv))
+        if "haspi" in metrics:
+            ne24 = resample_to_24k(ne, 16000)
+            if key_tuple is None:
+                out["haspi"] = haspi_v2_24k(resample_to_24k(ref, 16000), ne24,
+                                            n_valid=_nv24(nv))[0]
+            else:
+                cc = cached("haspi-clean", lambda: haspi_v2_clean_24k(
+                    resample_to_24k(ref, 16000), n_valid=_nv24(nv)))
+                out["haspi"] = haspi_v2_from_clean_24k(ne24, cc,
+                                                       n_valid=_nv24(nv))[0]
+        if "siib" in metrics:
+            sv_h = np.zeros(len(idxs), np.int64)
+            for j, i in enumerate(idxs):
+                ck = (None if key_tuple is None
+                      else ("siib-vad",) + key_tuple[1 + j])
+                svj = clean_cache.get(ck) if ck is not None else None
+                if svj is None:
+                    svj = siib_tiled_length(np.asarray(
+                        clean_list[i][:nv_h[j]]), fs)
+                    if ck is not None:
+                        clean_cache[ck] = svj
+                sv_h[j] = svj
+            sb = -(-int(sv_h.max()) // bucket_quant) * bucket_quant
+            sv = torch.as_tensor(sv_h, device=dev)
+            ref_t, ne_t = _tile(ref, nv, sv, sb), _tile(ne, nv, sv, sb)
+            if key_tuple is None:
+                out["siib"] = siib_gauss_16k(ref_t, ne_t, sv)
+            else:
+                u = cached("siib-klt", lambda: siib_klt_16k(ref_t, sv))
+                out["siib"] = siib_gauss_16k_with_klt(ref_t, ne_t, sv, u)
+        pending.append((idxs, out))
+
+    # one device-to-host copy for the whole corpus
+    if pending:
+        names = list(pending[0][1])
+        flat = torch.cat([torch.stack([out[m].to(torch.float64)
+                                       for m in names]).reshape(-1)
+                          for _, out in pending]).cpu().numpy()
+        off = 0
+        for idxs, _ in pending:
+            chunk = flat[off:off + len(names) * len(idxs)].reshape(
+                len(names), len(idxs))
+            off += len(names) * len(idxs)
+            for j, i in enumerate(idxs):
+                for k, m in enumerate(names):
+                    raw = float(chunk[k, j])
+                    results[i][m] = float(mappers[m](raw)) if norm else raw
+    return results

@@ -164,8 +164,40 @@ def test_infer_cli_matches_jax(jax_ckpt, corpus, tmp_path, capsys):
         n_diff += int((d > 0).sum())
         n_total += d.size
     print(f"PCM16 samples differing from the JAX CLI: {n_diff} of {n_total}")
-    with pytest.raises(SystemExit, match="not ported"):
-        infer.main(args[:-1] + ["siib", "--output", str(tmp_path / "x")])
+    for m in ("pesq", "visqol", "siib,pesq"):
+        with pytest.raises(SystemExit, match="not ported.*ROADMAP.md"):
+            infer.main(args[:-1] + [m, "--output", str(tmp_path / "x")])
+
+
+def _printed_means(text: str, subset: str) -> dict:
+    lines = text.splitlines()
+    line = lines[lines.index(f"{subset}:") + 1]
+    return {kv.split(" is ")[0].strip().lower(): float(kv.split(" is ")[1])
+            for kv in line.split(",")}
+
+
+def test_infer_cli_scores_like_jax(jax_ckpt, corpus, tmp_path, capsys):
+    """`--metrics siib,haspi,estoi` prints the JAX CLI's per-subset means.
+    The subset is one utterance (the JAX package compiles each metric once
+    per distinct length); both CLIs score the float32 wavs they wrote, and
+    print three decimals, so the bar is the print's last digit, 1e-3."""
+    path, _ = jax_ckpt
+    subset = "utt1#"
+    args = ["--test-clean", str(corpus / "Clean"), "--test-noise",
+            str(corpus / "Noise"), "--checkpoint", path, "--batch-size", "4",
+            "--metrics", "siib,haspi,estoi", "--subsets", subset]
+    jinfer.main(args + ["--output", str(tmp_path / "jax")])
+    want = _printed_means(capsys.readouterr().out, subset)
+    res = infer.main(args + ["--output", str(tmp_path / "port"),
+                             "--device", "cpu"])
+    got = _printed_means(capsys.readouterr().out, subset)
+    assert want.keys() == got.keys() == {"siib", "haspi", "estoi"}
+    for m in want:
+        assert abs(got[m] - want[m]) <= 1e-3 + 1e-9, (m, got, want)
+    scored = res["scores"][subset]
+    assert scored["names"] == ["utt1#Cafeteria#1@1.wav"]
+    for m in want:
+        assert abs(round(scored["means"][m], 3) - got[m]) < 1e-9
 
 
 def test_stream_cli_runs(jax_ckpt, corpus, tmp_path):

@@ -110,5 +110,5 @@ def test_imcra_kernel_coefficients_cached_in_kernel_order():
     coef = imcra._kernel_coefficients(cfg)
     assert coef.dtype == np.float32 and coef.shape == (n,)
     assert imcra._kernel_coefficients(cfg) is coef
-    init = imcra.imcra_init(3, torch.float32, cfg)
+    init = imcra.imcra_init(3, torch.float32, cfg, device="cpu")
     assert coef[fields.index("lambda_init")] == init.lam[0].item()

@@ -48,6 +48,21 @@ def test_port_imports_without_jax_or_reference_package():
     assert "imported" in out.stdout
 
 
+def test_scoring_modules_are_covered():
+    """The scoring slice's modules are among those imported and scanned
+    above."""
+    mods = set(_port_modules())
+    assert {"nelegan_tpu_torch.metrics", "nelegan_tpu_torch.metrics._framing",
+            "nelegan_tpu_torch.metrics.calibrate",
+            "nelegan_tpu_torch.metrics.estoi",
+            "nelegan_tpu_torch.metrics.siib",
+            "nelegan_tpu_torch.metrics.haspi",
+            "nelegan_tpu_torch.metrics.haspi.ear_model",
+            "nelegan_tpu_torch.metrics.haspi.chains",
+            "nelegan_tpu_torch.ops.iir",
+            "nelegan_tpu_torch.dsp.resample"} <= mods
+
+
 def test_no_port_source_imports_jax_or_reference_package():
     sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 10
@@ -78,8 +93,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
-    from nelegan_tpu_torch import pipeline, streaming
+    from nelegan_tpu_torch import metrics, pipeline, streaming
     from nelegan_tpu_torch.cli import export_torch, infer, serve, stream
+    from nelegan_tpu_torch.dsp.imcra import imcra_init
+    from nelegan_tpu_torch.metrics.siib import siib
     from nelegan_tpu_torch.models.generator import Generator
     from nelegan_tpu_torch.train.checkpoint import load_generator
 
@@ -98,6 +115,11 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: infer.main(["--test-clean", str(tmp_path), "--test-noise",
                             str(tmp_path), "--checkpoint", "absent"]),
         lambda: export_torch.main(["--checkpoint", "absent", "--out", "x.pt"]),
+        lambda: metrics.score_pair(x, x, x),
+        lambda: metrics.score_batch([x], [x], [x]),
+        lambda: metrics.score_corpus([x], [x], [x]),
+        lambda: siib(x, x),
+        lambda: imcra_init(3, torch.float32),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -133,6 +155,7 @@ def test_kernel_wrappers_refuse_non_cuda_accelerators():
     wrapper launches its kernel, on anything else it raises."""
     from nelegan_tpu_torch.dsp.imcra import imcra_psd, imcra_scan
     from nelegan_tpu_torch.ops.cascade import gammatone_cascade
+    from nelegan_tpu_torch.ops.iir import linrec, one_pole
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="device"):
         imcra_scan(torch.empty(1, 4, 257, device=meta))
@@ -143,6 +166,10 @@ def test_kernel_wrappers_refuse_non_cuda_accelerators():
     with pytest.raises(ValueError, match="device"):
         gammatone_cascade(torch.empty(2, 8, device=meta),
                           torch.empty(2, device=meta))
+    with pytest.raises(ValueError, match="device"):
+        linrec(torch.empty(2, device=meta), torch.empty(2, 8, device=meta))
+    with pytest.raises(ValueError, match="device"):
+        one_pole(torch.empty(2, 8, device=meta), 0.5)
 
 
 def test_chip_smoke_fails_without_cuda():

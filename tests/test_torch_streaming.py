@@ -185,7 +185,7 @@ def test_carried_imcra_equals_one_scan(cfg):
         1.0, 1e-3, (2, 200, 33)).astype(np.float32))
     want, st = imcra.imcra_scan_plain(y2, cfg=cfg)
     rows, ju = imcra.pack_state(imcra.imcra_init(33, torch.float32, cfg,
-                                                 (2,)))
+                                                 (2,), "cpu"))
     got, t = [], 0
     for n in [1, 3, 11, 1, 14, 15, 30, 1, 1, 60, 63]:
         psd, rows, ju = streaming.carried_noise_psd(
