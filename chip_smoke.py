@@ -33,14 +33,35 @@ Phases, in order; any failure raises:
      packed wrapper of a scan from `imcra_init`.  The first-order
      recurrence `linrec` (ops/iir) with an initial state at [32, 55296]
      with one pole a row and [8, 55296] with a pole per step, float32 and
-     complex64, against its plain loop on the card (bar LINREC_BAR) and one
-     row against the host's float64, past one shared-memory segment and at
-     one sample; graph-replay times beside the bytes bound, and the cuFFT
-     convolution with the truncated impulse response as the yardstick for
-     one pole a row; the scan-form middle ear (three linrec launches)
-     against the spectral fold the ear model uses (bar MIDDLE_EAR_BAR);
+     complex64 (synthetic long rows: no path runs linrec at these shapes
+     yet), against its plain loop on the card (bar LINREC_BAR) and one
+     row against the host's float64, over several windows of a cluster
+     (2 x 200001), at one sample and in the short-row form (8 x 143); its
+     backward (`linrec_bwd`: db, da, dy0) at the same shapes, every row
+     against the plain adjoint in float64 on the card (bar LINREC_BAR of
+     each row's largest |lam|; a per-row da of the sum of its terms'
+     magnitudes) and row 0 (at 2 x 200001 every row) against the host's
+     float64 adjoint (a per-row da and dy0 relative to their own values),
+     two runs bit for bit, at [4, 4096] against autograd through the plain
+     loop on the card, and the gradients of `middle_ear` and `biquad`
+     against the port's CPU float64; every form forward and backward timed by graph replay on the
+     same inputs and rotating through more than ROTATE_BYTES of inputs (the
+     roofline share on the latter), [8, 143] beside the launch floor (the
+     short form at one sample), and the cuFFT convolution with the
+     truncated impulse response as the yardstick for one pole a row (for
+     the backward on the reversed rows); the scan-form middle ear (three
+     linrec launches) against the spectral fold the ear model uses (bar
+     MIDDLE_EAR_BAR);
      `one_pole_cascade` (both forms) and `linear_recurrence_2x2` on the
      card against the host's float64;
+  3b. gradient phase, `linrec`'s path, synthetic: a loss through the scan
+     form of HASPI's middle ear on [8, 55296] (eight 36864-sample
+     utterances at 24 kHz; no path of either package differentiates it, as
+     HASPI folds it into its spectrum) and PESQ's gain memory on [8, 143]
+     (the queued caller), then its backward; launch counts zeroed just
+     before and read just after (4 `linrec`, 4 `linrec_bwd`); the middle
+     ear's gradient against its spectral adjoint (MIDDLE_EAR_BAR), the gain
+     memory's against the CPU's float64 (LINREC_BAR);
   4. serving phase, the port's main path: `EnhanceServer` at full width
      (hidden 256, 6 blocks, 64 bands; weights from a numpy seed), batch 8,
      on 127.0.0.1:0; ten concurrent requests over two buckets, then three
@@ -108,14 +129,17 @@ Phases, in order; any failure raises:
      warm, by host clock and CUDA events; one profile (busy share, top
      device operations); SIIB's eigh time against its warm time;
   9. one JSON line per phase, one of kernel records (each with its launches
-     on the serving, training, streaming, infer and scoring paths and in
-     the kernel phase), the card line again, and last
+     on the serving, training, streaming, infer, scoring and gradient paths
+     and in the kernel phase; `launches` is its own path's: serving for
+     IMCRA and the cascade, the gradient phase for linrec and linrec_bwd),
+     the card line again, and last
      `{"ok": true, "device": ...}`.
 """
 from __future__ import annotations
 
 import copy
 import functools
+import itertools
 import json
 import multiprocessing
 import subprocess
@@ -137,7 +161,8 @@ from nelegan_tpu_torch.data.wavio import read_wav, write_wav_pcm16
 from nelegan_tpu_torch.device import disable_tf32
 from nelegan_tpu_torch.dsp import imcra, mmse
 from nelegan_tpu_torch.dsp.stft import stft
-from nelegan_tpu_torch.metrics.haspi.ear_model import (ear_model, middle_ear,
+from nelegan_tpu_torch.metrics.haspi.ear_model import (_ME_A, _ME_B,
+                                                       ear_model, middle_ear,
                                                        middle_ear_response)
 from nelegan_tpu_torch.metrics.siib import (_capacity, _klt, _stack_pair,
                                             siib_prepare)
@@ -202,10 +227,22 @@ STREAM_BATCHES = (8, 64)    # concurrent streams timed
 # Infer phase: eight utterances in each of three length buckets.
 INFER_BUCKETS = ((12289, 16384), (20481, 24576), (32769, 36864))
 INFER_PER_BUCKET = 8
-# linrec kernel: HASPI's 24 kHz length of a 36864-sample utterance; 32 rows
-# with one pole each (the ear's channels), 8 rows with a pole per step.
+# linrec kernel, synthetic long rows: no path of either package runs linrec
+# at these shapes (the ear model folds the middle ear into its spectrum; the
+# one queued caller, PESQ's gain memory, is [8, PESQ_FRAMES]).  The length
+# is HASPI's 24 kHz length of a 36864-sample utterance; 32 rows with one pole
+# each and 8 rows with a pole per step.
 LINREC_N = 55296
 LINREC_BAR = 1e-5        # relative to each row's largest |y|, float32
+# (the backward: of each row's largest |lam|; against the host's float64, a
+# per-row da and dy0 relative to their own values; against the float64 plain
+# adjoint on every row, a per-row da to the sum of its terms' magnitudes)
+LINREC_FORMS = (("real_per_row", 32, False, False, 20),
+                ("real_per_step", 8, True, False, 21),
+                ("complex_per_row", 32, False, True, 22),
+                ("complex_per_step", 8, True, True, 23))
+ROTATE_BYTES = 100e6     # rotating timings: over twice the H100's 50 MB L2
+PESQ_FRAMES = 143        # P.862 frames (512, hop 256) of 36864 samples
 MIDDLE_EAR_BAR = 1e-5    # the scan against the spectral fold, relative
 # Scoring phase bars against the CPU's float64 score of the same file, on
 # |card - cpu| / max(|cpu|, 1) (rel_errors), fixed in PERF.md before the
@@ -667,6 +704,161 @@ def linrec_checks(dev, rows: int, n: int, per_step: bool, cplx: bool,
     return rec
 
 
+def host_adjoint(a: np.ndarray, g: np.ndarray, y: np.ndarray, y0):
+    """One row's adjoint in float64 (complex128) on the host, from the
+    float64 forward y: lam[n] = g[n] + conj(a[n+1]) lam[n+1] (lfilter of
+    the reversed row for one pole a row, a loop for a pole per step), then
+    da (per step, or its sum) and dy0."""
+    from scipy.signal import lfilter
+    ca = np.conj(a)
+    if a.ndim == 0:
+        lam = lfilter([1.0], [1.0, -ca], g[::-1])[::-1]
+    else:
+        lam, s = np.empty_like(g), 0.0
+        for i in range(g.size - 1, -1, -1):
+            s = (ca[i + 1] * s if i + 1 < g.size else 0.0) + g[i]
+            lam[i] = s
+    d = lam * np.conj(np.concatenate([[y0], y[:-1]]))
+    return lam, (d if a.ndim else d.sum()), (ca[0] if a.ndim else ca) * lam[0]
+
+
+def adjoint_errors(got, want) -> dict:
+    """(db, da, dy0) of rows against their float64 values: db and a per-step
+    da relative to each row's largest magnitude, a per-row da and dy0 each
+    relative to its own value."""
+    def rows_rel(x, w):
+        x, w = np.atleast_2d(x), np.atleast_2d(w)
+        return float((np.abs(x - w).max(1) / np.abs(w).max(1)).max())
+
+    def each_rel(x, w):
+        return float((np.abs(x - w) / np.abs(w)).max())
+    db, da, dy0 = got
+    wb, wa, wy = want
+    return {"db_rel": rows_rel(db, wb),
+            "da_rel": rows_rel(da, wa) if np.ndim(wa) == np.ndim(wb)
+            else each_rel(da, wa), "dy0_rel": each_rel(dy0, wy)}
+
+
+def adjoint_rows_errors(got, want, y, y0) -> dict:
+    """(db, da, dy0) of every row against `want`, on the card in float64:
+    db and dy0 relative to the row's largest |lam|, a per-step da to the
+    row's largest |da|, a per-row da to the sum of its terms' magnitudes,
+    sum_n |lam[n] y[n-1]| with y[-1] = y0 (y, y0 those `want` was formed
+    from).  That sum is the scale of a sum's rounding: the per-row sums at
+    the seeded inputs cancel by up to ~6000 times, so their own values are
+    no scale for float32 (`da_rel_own` reports it, ungated)."""
+    wide = torch.complex128 if want[0].is_complex() else torch.float64
+    db, da, dy0, wb, wa, wy, y, y0 = (t.to(wide) for t in (*got, *want, y, y0))
+    lam = wb.abs().amax(1)
+
+    def worst(err, scale):
+        return float((err / scale).max())
+    rec = {"db_rel": worst((db - wb).abs().amax(1), lam),
+           "dy0_rel": worst((dy0 - wy).abs(), lam)}
+    if wa.dim() == 2:
+        rec["da_rel"] = worst((da - wa).abs().amax(1), wa.abs().amax(1))
+    else:
+        prev = torch.cat([y0[:, None], y[:, :-1]], 1)
+        rec["da_rel"] = worst((da - wa).abs(), (wb.abs() * prev.abs()).sum(1))
+        rec["da_rel_own"] = worst((da - wa).abs(), wa.abs())
+    return rec
+
+
+def linrec_backward_checks(dev, rows: int, n: int, per_step: bool,
+                           cplx: bool, seed: int, plain: bool = True) -> dict:
+    """The kernel's adjoint (db, da, dy0) for a seeded output gradient:
+    every row against the plain adjoint in float64 on the card (when
+    `plain`; adjoint_rows_errors), row 0 (every row without `plain`)
+    against the host's float64 adjoint of the float64 forward, and two runs
+    bit for bit; raises beyond LINREC_BAR."""
+    a, b, y0 = linrec_inputs(dev, rows, n, per_step, cplx, seed)
+    rng = np.random.RandomState(seed + 100)
+    g = rng.randn(rows, n) + (1j * rng.randn(rows, n) if cplx else 0)
+    g = torch.as_tensor(g).to(b.dtype).to(dev)
+    y = iir.linrec(a, b, y0)
+    got = iir.linrec_backward(a, g, y, y0)
+    again = iir.linrec_backward(a, g, y, y0)
+    if plain:
+        a64, b64, y064, g64 = (t.to(torch.complex128 if cplx
+                                    else torch.float64) for t in (a, b, y0, g))
+        y64 = iir.linrec_plain(a64, b64, y064)
+        vs_plain = adjoint_rows_errors(
+            got, iir.linrec_backward_plain(a64, g64, y64, y064), y64, y064)
+    torch.cuda.synchronize()
+    wide = np.complex128 if cplx else np.float64
+    host = {}
+    for r in (0,) if plain else range(rows):
+        ar, br, y0r, gr = (t[r].cpu().numpy().astype(wide)
+                           for t in (a, b, y0, g))
+        errs = adjoint_errors(
+            [t[r].cpu().numpy() for t in got],
+            host_adjoint(ar, gr, host_recurrence(ar, br, y0r), y0r))
+        host = {k: max(v, host.get(k, 0.0)) for k, v in errs.items()}
+    rec = {"shape": [rows, n], "a": "per step" if per_step else "per row",
+           "type": "complex64" if cplx else "float32",
+           "host_f64_rows": 1 if plain else rows, **host,
+           "bit_equal_runs": all(torch.equal(u, v)
+                                 for u, v in zip(got, again))}
+    if plain:
+        rec["vs_plain_f64"] = vs_plain
+    print(f"linrec backward at {rec['shape']} ({rec['a']}, {rec['type']}, "
+          f"with y0) against float64: {rec}")
+    errs = [v for k, v in rec.items() if k.endswith("_rel")]
+    errs += [v for k, v in rec.get("vs_plain_f64", {}).items()
+             if k.endswith("_rel")]
+    if not rec["bit_equal_runs"] or not all(v < LINREC_BAR for v in errs):
+        raise AssertionError(f"linrec backward: {rec}")
+    return rec
+
+
+def linrec_backward_vs_autograd(dev) -> dict:
+    """The adjoint kernel against autograd through the raw plain loop on the
+    card at [4, 4096], all four forms; raises beyond LINREC_BAR."""
+    rows, n = 4, 4096
+    out = {}
+    for per_step, cplx in ((False, False), (True, False), (False, True),
+                           (True, True)):
+        a, b, y0 = (t.requires_grad_() for t in linrec_inputs(
+            dev, rows, n, per_step, cplx, 30 + 2 * per_step + cplx))
+        rng = np.random.RandomState(40)
+        g = rng.randn(rows, n) + (1j * rng.randn(rows, n) if cplx else 0)
+        g = torch.as_tensor(g).to(b.dtype).to(dev)
+        want = torch.autograd.grad(iir.linrec_plain(a, b, y0), (b, a, y0), g)
+        got = torch.autograd.grad(iir.linrec(a, b, y0), (b, a, y0), g)
+        key = (f"{'complex' if cplx else 'real'}_"
+               f"{'per_step' if per_step else 'per_row'}")
+        out[key] = adjoint_errors([t.cpu().numpy() for t in got],
+                                  [t.cpu().numpy() for t in want])
+    print(f"linrec backward at [{rows}, {n}] against the plain loop's "
+          f"autograd: {out}")
+    if not all(v < LINREC_BAR for r in out.values() for v in r.values()):
+        raise AssertionError(f"linrec backward vs autograd: {out}")
+    return out
+
+
+def filter_gradient_checks(dev) -> dict:
+    """d sum(w * f(x)) / dx through middle_ear and biquad on the card
+    (float32, the adjoint kernel) against the port's CPU in float64 (the
+    plain adjoint); raises beyond LINREC_BAR of the largest gradient."""
+    rng = np.random.RandomState(14)
+    x, w = rng.randn(2, 6000), rng.randn(2, 6000)
+    fns = {"middle_ear": middle_ear,
+           "biquad": lambda v: iir.biquad(v, _ME_B, _ME_A)}
+    rec = {}
+    for name, fn in fns.items():
+        grads = []
+        for d, dt in ((dev, torch.float32), ("cpu", torch.float64)):
+            xt = torch.as_tensor(x, dtype=dt, device=d).requires_grad_()
+            (torch.as_tensor(w, dtype=dt, device=d) * fn(xt)).sum().backward()
+            grads.append(xt.grad.double().cpu().numpy())
+        rec[name] = float(np.abs(grads[0] - grads[1]).max()
+                          / np.abs(grads[1]).max())
+    print(f"gradients on the card against the CPU's float64: {rec}")
+    if not all(v < LINREC_BAR for v in rec.values()):
+        raise AssertionError(f"filter gradients: {rec}")
+    return rec
+
+
 def middle_ear_check(dev) -> dict:
     """The scan-form middle ear (a 2-tap FIR, then linrec for the one-pole
     and the biquad's two complex poles) against the closed-form response
@@ -728,39 +920,125 @@ def iir_checks(dev) -> dict:
     return rec
 
 
-def linrec_phase(dev) -> dict:
+def linrec_work(rows: int, n: int, per_step: bool, cplx: bool,
+                backward: bool) -> tuple[int, int]:
+    """Bytes (each input read once, each output written once) and operations
+    of one call: forward b, a, y0 in and y out, 2 (real) or 8 (complex)
+    flops a sample; backward g, y, a, y0 in and db, da, dy0 out, twice the
+    flops (lam and da)."""
+    item = 8 if cplx else 4
+    a = rows * (n if per_step else 1)
+    if backward:
+        n_bytes = item * (3 * rows * n + 2 * a + 2 * rows)
+    else:
+        n_bytes = item * (2 * rows * n + a + rows)
+    return n_bytes, (8 if cplx else 2) * (2 if backward else 1) * rows * n
+
+
+def rotating_ms(fn, sets: list) -> float:
+    """graph_ms of fn over the argument sets in turn, so that no call finds
+    its inputs in the L2 cache."""
+    it = itertools.cycle(sets)
+    return graph_ms(lambda: fn(*next(it)), calls=max(20, len(sets)))
+
+
+def linrec_timings(dev) -> dict:
+    """Every form, forward and backward, replayed on the same inputs and
+    rotating through input sets of more than ROTATE_BYTES; the roofline
+    share on the rotating time.  Then PESQ's gain-memory shape [8, 143]
+    beside the launch floor: the short form at one sample, a launch that
+    does next to nothing."""
+    timed = {}
+    for key, rows, per_step, cplx, seed in LINREC_FORMS:
+        def one_set(i):
+            a, b, y0 = linrec_inputs(dev, rows, LINREC_N, per_step, cplx,
+                                     seed + 1000 * i)
+            g = torch.randn(b.shape, dtype=b.dtype, device=dev,
+                            generator=torch.Generator(dev).manual_seed(i))
+            return a, b, y0, g, iir.linrec(a, b, y0)
+        for backward in (False, True):
+            n_bytes, n_ops = linrec_work(rows, LINREC_N, per_step, cplx,
+                                         backward)
+            sets = [one_set(i) for i in range(
+                int(np.ceil(ROTATE_BYTES / n_bytes)) + 1)]
+            if backward:
+                def fn(a, b, y0, g, y):
+                    return iir.linrec_backward(a, g, y, y0)
+            else:
+                def fn(a, b, y0, g, y):
+                    return iir.linrec(a, b, y0)
+            bms, by = bound(n_bytes, n_ops)
+            ms = rotating_ms(fn, sets)
+            timed[f"{key}_{'backward' if backward else 'forward'}"] = {
+                "shape": [rows, LINREC_N], "ms": ms,
+                "same_inputs_ms": graph_ms(lambda: fn(*sets[0])),
+                "rotating_sets": len(sets), "bound_ms": bms, "bound_by": by,
+                "roofline_share": bms / ms}
+            del sets
+    rng = np.random.RandomState(26)
+    a, y0 = (torch.full((8,), v, device=dev) for v in (0.2, 1.0))
+    b = torch.as_tensor(0.8 * rng.uniform(0, 1, (8, PESQ_FRAMES)),
+                        dtype=torch.float32, device=dev)
+    g = torch.as_tensor(rng.randn(8, PESQ_FRAMES), dtype=torch.float32,
+                        device=dev)
+    y = iir.linrec(a, b, y0)
+    a1, b1 = torch.ones(1, device=dev), torch.ones(1, 1, device=dev)
+    short = {"shape": [8, PESQ_FRAMES],
+             "forward_ms": graph_ms(lambda: iir.linrec(a, b, y0)),
+             "backward_ms": graph_ms(lambda: iir.linrec_backward(a, g, y, y0)),
+             "one_sample_launch_ms": graph_ms(lambda: iir.linrec(a1, b1))}
+    print(f"linrec times (graph replay; share on rotating inputs): {timed}; "
+          f"[8, {PESQ_FRAMES}]: {short}")
+    return {"forms": timed, "short_rows": short}
+
+
+def linrec_phase(dev) -> list:
     main = linrec_checks(dev, 32, LINREC_N, False, False, 20)
     others = [linrec_checks(dev, 8, LINREC_N, True, False, 21),
               linrec_checks(dev, 32, LINREC_N, False, True, 22),
               linrec_checks(dev, 8, LINREC_N, True, True, 23),
-              # past one shared-memory segment, and the shortest row
+              # several windows of a cluster, and the shortest row
               linrec_checks(dev, 2, 200001, True, True, 24, plain=False),
-              linrec_checks(dev, 3, 1, True, False, 25)]
+              linrec_checks(dev, 3, 1, True, False, 25),
+              # the short-row form
+              linrec_checks(dev, 8, PESQ_FRAMES, False, False, 27)]
+    backward = [linrec_backward_checks(dev, rows, LINREC_N, per_step, cplx,
+                                       seed)
+                for _, rows, per_step, cplx, seed in LINREC_FORMS]
+    backward += [linrec_backward_checks(dev, 2, 200001, True, True, 24,
+                                        plain=False),
+                 linrec_backward_checks(dev, 8, PESQ_FRAMES, False, False,
+                                        27)]
+    vs_autograd = linrec_backward_vs_autograd(dev)
+    gradients = filter_gradient_checks(dev)
     me = middle_ear_check(dev)
     users = iir_checks(dev)
+    times = linrec_timings(dev)
+    timed = times["forms"]
 
-    timed = {}
-    for key, rows, per_step, cplx, seed in (
-            ("real_per_row", 32, False, False, 20),
-            ("real_per_step", 8, True, False, 21),
-            ("complex_per_row", 32, False, True, 22),
-            ("complex_per_step", 8, True, True, 23)):
-        a, b, y0 = linrec_inputs(dev, rows, LINREC_N, per_step, cplx, seed)
-        item = 8 if cplx else 4
-        n_bytes = item * (2 * rows * LINREC_N + rows
-                          + (rows * LINREC_N if per_step else rows))
-        n_ops = (8 if cplx else 2) * rows * LINREC_N
-        bms, by = bound(n_bytes, n_ops)
-        ms = graph_ms(lambda: iir.linrec(a, b, y0))
-        timed[key] = {"shape": [rows, LINREC_N], "ms": ms, "bound_ms": bms,
-                      "bound_by": by, "roofline_share": bms / ms}
     a, b, y0 = linrec_inputs(dev, 32, LINREC_N, False, False, 20)
-    prof_ms = profiler_ms(lambda: iir.linrec(a, b, y0), "linrec_kernel")
+    g = torch.as_tensor(np.random.RandomState(120).randn(32, LINREC_N),
+                        dtype=torch.float32, device=dev)
+    y = iir.linrec(a, b, y0)
+    prof_ms = profiler_ms(lambda: iir.linrec(a, b, y0), "linrec_tiles")
+    prof_bwd_ms = profiler_ms(lambda: iir.linrec_backward(a, g, y, y0),
+                              "linrec_tiles")
     eager_ms = cuda_ms(lambda: iir.linrec(a, b, y0))
     plain_ms = cuda_ms(lambda: iir.linrec_plain(a, b, y0), calls=1,
                        samples=1, warmup=0)
+    got = iir.linrec_backward(a, g, y, y0)
+    t0 = time.perf_counter()
+    want = iir.linrec_backward_plain(a, g, y, y0)
+    torch.cuda.synchronize()
+    plain_bwd_ms = (time.perf_counter() - t0) * 1e3
+    bwd_err = max(float((u - v).abs().max()) for u, v in zip(got, want))
+    bwd_rel = adjoint_rows_errors(got, want, y, y0)
+    if not all(v < LINREC_BAR for k, v in bwd_rel.items()
+               if k.endswith("_rel")):
+        raise AssertionError(f"linrec backward vs plain: {bwd_rel}")
     # yardstick for one pole a row: the cuFFT convolution with the impulse
-    # response a^k, truncated where max|a|^L falls below 1e-7 (from y0 = 0)
+    # response a^k, truncated where max|a|^L falls below 1e-7 (from y0 = 0);
+    # for the backward the same on the reversed rows of g
     amax = float(a.abs().max())
     ir_len = int(np.ceil(np.log(1e-7) / np.log(amax)))
     m = iir._fft_len_ir(LINREC_N, ir_len)
@@ -771,36 +1049,121 @@ def linrec_phase(dev) -> dict:
         return torch.fft.irfft(torch.fft.rfft(b, m) * torch.fft.rfft(h, m),
                                m)[:, :LINREC_N]
 
-    lib = library()
+    def library_bwd():
+        return torch.fft.irfft(torch.fft.rfft(g.flip(1), m)
+                               * torch.fft.rfft(h, m), m)[:, :LINREC_N].flip(1)
+
+    lib, lib_b = library(), library_bwd()
     zero = iir.linrec(a, b)
     torch.cuda.synchronize()
     lib_rel = float((lib - zero).abs().max() / zero.abs().max())
-    library_ms = graph_ms(library)
-    main_t = timed["real_per_row"]
-    print(f"linrec [32, {LINREC_N}] one pole a row: kernel {main_t['ms']:.4f} "
-          f"ms (graph replay), {prof_ms:.4f} ms (profiler), {eager_ms:.4f} ms "
-          f"(eager); plain {plain_ms:.1f} ms; cuFFT yardstick (size {m}, "
-          f"impulse response {ir_len}) {library_ms:.4f} ms, {lib_rel:.2e} "
-          f"from the kernel; bound {main_t['bound_ms']:.6f} ms "
-          f"({main_t['bound_by']}), share {main_t['roofline_share']:.3f}; "
-          f"all four forms: {timed}")
-    return {"name": "linrec", "route": "cuda",
-            "source": "nelegan_tpu_torch/csrc/linrec.cu",
-            "replaces": "nelegan_tpu/ops/iir.py:38 (one_pole's "
-                        "associative_scan; also :83, one_pole_blocked's "
-                        "carries, and :240, linear_recurrence_2x2; no Pallas "
-                        "kernel)",
-            "max_abs_err": main["max_abs_err"], "ms": main_t["ms"],
-            "plain_ms": plain_ms, "bound_ms": main_t["bound_ms"],
-            "bound_by": main_t["bound_by"], "library_ms": library_ms,
-            "library": f"irfft(rfft(b, {m}) * rfft(h, {m}))[:, :{LINREC_N}], "
-                       f"h = a^k truncated at {ir_len} (zero initial state)",
-            "library_rel_err": lib_rel, "profiler_ms": prof_ms,
-            "eager_ms": eager_ms, "roofline_share": main_t["roofline_share"],
-            "forms": timed, "shape": [32, LINREC_N],
-            "rel_err_vs_plain": main["rel_vs_plain"],
-            "rel_err_vs_host_f64": main["rel_vs_host_f64"],
-            "other_shapes": others, "middle_ear": me, "iir_users": users}
+    lib_b_rel = float((lib_b - got[0]).abs().max() / got[0].abs().max())
+    library_ms, library_bwd_ms = graph_ms(library), graph_ms(library_bwd)
+    fwd_t = timed["real_per_row_forward"]
+    bwd_t = timed["real_per_row_backward"]
+    print(f"linrec [32, {LINREC_N}] one pole a row: forward {fwd_t['ms']:.5f} "
+          f"ms rotating, {fwd_t['same_inputs_ms']:.5f} same inputs, "
+          f"{prof_ms:.5f} (profiler), {eager_ms:.4f} (eager); plain "
+          f"{plain_ms:.1f} ms; cuFFT yardstick (size {m}, impulse response "
+          f"{ir_len}) {library_ms:.4f} ms, {lib_rel:.2e} from the kernel; "
+          f"bound {fwd_t['bound_ms']:.6f} ms, share "
+          f"{fwd_t['roofline_share']:.3f}.  Backward {bwd_t['ms']:.5f} ms "
+          f"rotating, {bwd_t['same_inputs_ms']:.5f} same inputs, "
+          f"{prof_bwd_ms:.5f} (profiler); plain {plain_bwd_ms:.1f} ms "
+          f"({bwd_rel} from it); yardstick {library_bwd_ms:.4f} ms; "
+          f"bound {bwd_t['bound_ms']:.6f} ms, share "
+          f"{bwd_t['roofline_share']:.3f}")
+    common = {"route": "cuda", "source": "nelegan_tpu_torch/csrc/linrec.cu",
+              "bound_by": "bytes", "shape": [32, LINREC_N]}
+    forward_rec = {
+        "name": "linrec", **common,
+        "replaces": "nelegan_tpu/ops/iir.py:38 (one_pole's associative_scan;"
+                    " also :83, one_pole_blocked's carries, and :240, "
+                    "linear_recurrence_2x2; no Pallas kernel)",
+        "max_abs_err": main["max_abs_err"], "ms": fwd_t["ms"],
+        "same_inputs_ms": fwd_t["same_inputs_ms"], "plain_ms": plain_ms,
+        "bound_ms": fwd_t["bound_ms"], "bound_by": fwd_t["bound_by"],
+        "library_ms": library_ms,
+        "library": f"irfft(rfft(b, {m}) * rfft(h, {m}))[:, :{LINREC_N}], "
+                   f"h = a^k truncated at {ir_len} (zero initial state)",
+        "library_rel_err": lib_rel, "profiler_ms": prof_ms,
+        "eager_ms": eager_ms, "roofline_share": fwd_t["roofline_share"],
+        "forms": timed, "short_rows": times["short_rows"],
+        "rel_err_vs_plain": main["rel_vs_plain"],
+        "rel_err_vs_host_f64": main["rel_vs_host_f64"],
+        "other_shapes": others, "middle_ear": me, "iir_users": users}
+    backward_rec = {
+        "name": "linrec_bwd", **common,
+        "replaces": "nelegan_tpu/ops/iir.py:38 (JAX's autodiff of "
+                    "one_pole's associative_scan; also :83 and :240; no "
+                    "Pallas kernel)",
+        "max_abs_err": bwd_err, "rel_err_vs_plain": bwd_rel,
+        "ms": bwd_t["ms"],
+        "same_inputs_ms": bwd_t["same_inputs_ms"], "plain_ms": plain_bwd_ms,
+        "bound_ms": bwd_t["bound_ms"], "bound_by": bwd_t["bound_by"],
+        "library_ms": library_bwd_ms,
+        "library": f"the same cuFFT convolution on g's reversed rows (db)",
+        "library_rel_err": lib_b_rel, "profiler_ms": prof_bwd_ms,
+        "roofline_share": bwd_t["roofline_share"], "checks": backward,
+        "vs_plain_autograd": vs_autograd, "filter_gradients": gradients}
+    return [forward_rec, backward_rec]
+
+
+def gradient_phase(dev) -> dict:
+    """This slice's path, a synthetic loss through linrec's users and
+    back: the scan form of HASPI's middle ear over eight 36864-sample
+    utterances at 24 kHz ([8, 55296]: a one-pole, then the biquad's complex
+    pole pair; no path of either package differentiates it, as HASPI folds
+    it into its spectrum) and PESQ's gain memory over their frames ([8,
+    143]: a = 0.2 a row, y0 = 1; the queued caller).  Launch counts
+    are zeroed just before and read just after: 4 forward and 4 backward
+    launches.  The middle ear's gradient against its spectral adjoint (the
+    response's conjugate on the DFT grid), the gain memory's against the
+    port's CPU float64; raises beyond MIDDLE_EAR_BAR and LINREC_BAR."""
+    rng = np.random.RandomState(28)
+    x, w = (torch.as_tensor(rng.randn(8, LINREC_N), dtype=torch.float32,
+                            device=dev) for _ in range(2))
+    h_np = rng.uniform(0, 1, (8, PESQ_FRAMES))
+    h = torch.as_tensor(h_np, dtype=torch.float32, device=dev)
+    w2_np = rng.randn(8, PESQ_FRAMES)
+    w2 = torch.as_tensor(w2_np, dtype=torch.float32, device=dev)
+    x.requires_grad_()
+    h.requires_grad_()
+    a, y0 = (torch.full((8,), v, device=dev) for v in (0.2, 1.0))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss = ((w * middle_ear(x)).sum()
+            + (w2 * iir.linrec(a, 0.8 * h, y0)).sum())
+    loss.backward()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launches)
+
+    m = iir._fft_len_ir(LINREC_N, 4096)
+    adjoint = torch.fft.ifft(torch.fft.fft(w.to(torch.complex64), m)
+                             * middle_ear_response(m, torch.complex64, dev)
+                             .conj())[:, :LINREC_N].real
+    me_rel = float((x.grad - adjoint).abs().max() / adjoint.abs().max())
+    h64 = torch.from_numpy(h_np).requires_grad_()
+    (torch.from_numpy(w2_np) * iir.linrec(
+        torch.full((8,), 0.2, dtype=torch.float64), 0.8 * h64,
+        torch.ones(8, dtype=torch.float64))).sum().backward()
+    gm_rel = float(np.abs(h.grad.cpu().numpy() - h64.grad.numpy()).max()
+                   / h64.grad.abs().max())
+    res = {"middle_ear_shape": [8, LINREC_N], "gain_memory_shape":
+           [8, PESQ_FRAMES], "launches": launches,
+           "loss": float(loss.detach()),
+           "finite": bool(torch.isfinite(x.grad).all()
+                          and torch.isfinite(h.grad).all()),
+           "middle_ear_grad_rel_vs_spectral_adjoint": me_rel,
+           "gain_memory_grad_rel_vs_cpu_f64": gm_rel, "wall_ms": wall_ms}
+    print(f"gradient path: {res}")
+    if (launches["linrec"] != 4 or launches["linrec_bwd"] != 4
+            or not res["finite"] or me_rel >= MIDDLE_EAR_BAR
+            or gm_rel >= LINREC_BAR):
+        raise AssertionError(f"gradient path: {res}")
+    return res
 
 
 # --------------------------------------------------------------- serving
@@ -2094,8 +2457,9 @@ def main() -> None:
     print(f"built {sorted(kernels.KERNELS)} in {secs:.2f} s")
 
     kernels.reset_launches()
-    records = [imcra_phase(dev), cascade_phase(dev), linrec_phase(dev)]
+    records = [imcra_phase(dev), cascade_phase(dev), *linrec_phase(dev)]
     checked = dict(kernels.launches)
+    gradient = gradient_phase(dev)
     serving = serving_phase(dev)
     training = training_phase(dev)
     streamed = streaming_phase(dev)
@@ -2109,9 +2473,11 @@ def main() -> None:
         rec["infer_launches"] = inferred["launches"][rec["name"]]
         rec["scoring_launches"] = scored["launches"][rec["name"]]
         rec["kernel_phase_launches"] = checked[rec["name"]]
-    # linrec's own slice is scoring, which folds the middle ear into the
-    # ear model's spectrum: no path of the port launches it yet
-    records[2]["launches"] = scored["launches"]["linrec"]
+        rec["gradient_launches"] = gradient["launches"][rec["name"]]
+    # linrec's path is the gradient phase, a synthetic one (scoring folds the
+    # middle ear into the ear model's spectrum)
+    for rec in records[2:]:
+        rec["launches"] = gradient["launches"][rec["name"]]
     records[0]["training_featurized_batches"] = training["featurized_batches"]
     records[0]["streaming_steps"] = streamed["steps"]
     for rec in records:
@@ -2123,6 +2489,7 @@ def main() -> None:
     print(json.dumps({"streaming": streamed}))
     print(json.dumps({"infer": inferred}))
     print(json.dumps({"scoring": scored}))
+    print(json.dumps({"gradient": gradient}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

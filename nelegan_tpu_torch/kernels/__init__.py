@@ -58,6 +58,11 @@ KERNELS: Dict[str, Kernel] = {
     # every row from 0.
     "linrec": Kernel("linrec.cu", "linrec",
                      (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # a, g, y0, y, db, da, dy0, rows, n, is_complex, a_per_step, stream: its
+    # adjoint for the output's gradient g (NULL da or dy0: not wanted; da
+    # needs the forward's y).
+    "linrec_bwd": Kernel("linrec.cu", "linrec_bwd",
+                         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     # counts, seed, blocks, iters, stream: the card's check of the IMCRA
     # kernel's fast division against IEEE division (same library).
     "imcra_divide_check": Kernel("imcra.cu", "imcra_divide_check",

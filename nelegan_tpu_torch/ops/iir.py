@@ -9,10 +9,13 @@ associative scan, so each of them here is one call of `linrec`:
 
 A CUDA tensor launches the hand-written kernel `csrc/linrec.cu` (float32 or
 complex64, contiguous) or raises; a CPU tensor takes `linrec_plain`, a loop
-over N vectorised over rows.  Higher orders decompose as in the reference
-package: the biquad's denominator is its complex-conjugate pole pair, two
-complex one-poles; a constant 2x2 system is diagonalised into two complex
-one-poles.  `one_pole_blocked` and `one_pole_cascade(blocked=True)`, the
+over N vectorised over rows.  `linrec` is a `torch.autograd.Function` on
+both: its backward is the same recurrence from each row's end, the kernel's
+`linrec_bwd` launch on the card and `linrec_backward_plain` on the CPU.
+Higher orders decompose as in the reference package: the biquad's
+denominator is its complex-conjugate pole pair, two complex one-poles; a
+constant 2x2 system is diagonalised into two complex one-poles.
+`one_pole_blocked` and `one_pole_cascade(blocked=True)`, the
 TPU's matrix-unit form of the same recurrence, keep their signatures and
 take the same route.
 
@@ -45,39 +48,146 @@ def linrec_plain(a: torch.Tensor, b: torch.Tensor,
     return y
 
 
+def linrec_backward_plain(a: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
+                          y0: torch.Tensor | None = None, need_a: bool = True,
+                          need_y0: bool = True):
+    """The adjoint of `linrec` for the output's gradient g [R, N], in torch's
+    convention for complex gradients: lam[n] = g[n] + conj(a[n+1]) lam[n+1]
+    from the row's end, a loop over N vectorised over rows.  Returns (db,
+    da, dy0): db = lam; da[n] = lam[n] conj(y[n-1]) with y[-1] = y0 (0 for
+    None), summed over n when `a` is per row; dy0 = conj(a[0]) lam[0].  da
+    and dy0 are None unless asked for."""
+    rows, n = g.shape
+    per_step = a.dim() == 2
+    ca = a.conj()
+    lam = torch.empty_like(g)
+    s = torch.zeros(rows, dtype=g.dtype, device=g.device)
+    for i in range(n - 1, -1, -1):
+        if i + 1 < n:
+            s = (ca[:, i + 1] if per_step else ca) * s + g[:, i]
+        else:
+            s = g[:, i].clone()
+        lam[:, i] = s
+    da = dy0 = None
+    if need_a:
+        first = torch.zeros_like(y[:, :1]) if y0 is None else y0[:, None]
+        d = lam * torch.cat([first, y[:, :-1]], 1).conj()
+        da = d if per_step else d.sum(1)
+    if need_y0:
+        dy0 = (ca[:, 0] if per_step else ca) * lam[:, 0]
+    return lam, da, dy0
+
+
+def _check_shapes(a, b, y0, name: str = "linrec") -> None:
+    if b.dim() != 2 or a.shape not in (b.shape, b.shape[:1]) or (
+            y0 is not None and y0.shape != b.shape[:1]):
+        raise ValueError(f"{name} expects b [R, N], a [R, N] or [R], y0 [R]; "
+                         f"got {tuple(b.shape)}, {tuple(a.shape)}, "
+                         f"{None if y0 is None else tuple(y0.shape)}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_kernel_inputs(tensors, name: str) -> None:
+    """Raise unless the tensors (of one dtype) are contiguous, on one CUDA
+    device, and of a type the kernel takes."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: unsupported devices "
+                         f"{[str(t.device) for t in tensors]}")
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name} kernel takes float32 or complex64, got "
+                        f"{dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _linrec_kernel(a, b, y0):
+    y = torch.empty_like(b)
+    kernels.launch("linrec", a.data_ptr(), b.data_ptr(), _ptr(y0),
+                   y.data_ptr(), b.shape[0], b.shape[1], int(b.is_complex()),
+                   int(a.dim() == 2), _stream(b))
+    return y
+
+
+def linrec_backward(a: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
+                    y0: torch.Tensor | None = None, need_a: bool = True,
+                    need_y0: bool = True):
+    """(db, da, dy0) of `linrec` for the output's gradient g, as
+    `linrec_backward_plain` computes them.  A CPU tensor takes that loop; a
+    CUDA tensor launches the `linrec_bwd` kernel (one launch, the recurrence
+    from each row's end, da and dy0 written as it goes) or raises."""
+    _check_shapes(a, g, y0, "linrec_backward")
+    if y.shape != g.shape:
+        raise ValueError(f"linrec_backward: y {tuple(y.shape)} and g "
+                         f"{tuple(g.shape)} differ")
+    need_y0 = need_y0 and y0 is not None
+    if g.shape[1] == 0:
+        return (torch.zeros_like(g), torch.zeros_like(a) if need_a else None,
+                torch.zeros_like(y0) if need_y0 else None)
+    if g.device.type == "cpu":
+        return linrec_backward_plain(a, g, y, y0, need_a, need_y0)
+    g = g.contiguous()
+    tensors = [g, a, y] + ([] if y0 is None else [y0])
+    if any(t.dtype != g.dtype for t in tensors):
+        raise TypeError(f"linrec_bwd: one dtype expected, got "
+                        f"{[t.dtype for t in tensors]}")
+    _check_kernel_inputs(tensors, "linrec_bwd")
+    db = torch.empty_like(g)
+    da = torch.empty_like(a) if need_a else None
+    dy0 = torch.empty_like(y0) if need_y0 else None
+    kernels.launch("linrec_bwd", a.data_ptr(), g.data_ptr(), _ptr(y0),
+                   y.data_ptr() if need_a else None, db.data_ptr(), _ptr(da),
+                   _ptr(dy0), g.shape[0], g.shape[1], int(g.is_complex()),
+                   int(a.dim() == 2), _stream(g))
+    return db, da, dy0
+
+
+class _Linrec(torch.autograd.Function):
+    """`linrec` with its adjoint: the forward and the backward each one
+    launch on the card, the plain loops on the CPU (run without a graph of
+    their own, so the CPU's gradient comes from the formulas the kernel
+    runs).  Once differentiable on both: no double backward and no
+    forward-mode AD, which JAX's associative scan allows."""
+
+    @staticmethod
+    def forward(ctx, a, b, y0):
+        y = linrec_plain(a, b, y0) if b.device.type == "cpu" \
+            else _linrec_kernel(a, b, y0)
+        ctx.save_for_backward(a, y, y0)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, y, y0 = ctx.saved_tensors
+        need_a, need_b, need_y0 = ctx.needs_input_grad
+        db, da, dy0 = linrec_backward(a, g, y, y0, need_a, need_y0)
+        return da, db if need_b else None, dy0
+
+
 def linrec(a: torch.Tensor, b: torch.Tensor,
            y0: torch.Tensor | None = None) -> torch.Tensor:
     """y[r, n] = a[r, n] y[r, n-1] + b[r, n] from y[r, -1] = y0[r] (0 when
     y0 is None); `a` is [R, N] (per step) or [R] (per row), of b's dtype.
 
     A CPU tensor takes `linrec_plain`.  A CUDA tensor launches the `linrec`
-    kernel (float32 or complex64, contiguous) or raises."""
-    if b.dim() != 2 or a.shape not in (b.shape, b.shape[:1]) or (
-            y0 is not None and y0.shape != b.shape[:1]):
-        raise ValueError(f"linrec expects b [R, N], a [R, N] or [R], y0 [R]; "
-                         f"got {tuple(b.shape)}, {tuple(a.shape)}, "
-                         f"{None if y0 is None else tuple(y0.shape)}")
+    kernel (float32 or complex64, contiguous) or raises.  Differentiable on
+    both (`linrec_backward`)."""
+    _check_shapes(a, b, y0)
     tensors = (a, b) if y0 is None else (a, b, y0)
     if any(t.dtype != b.dtype for t in tensors):
         raise TypeError(f"linrec: a, b and y0 must share one dtype, got "
                         f"{[t.dtype for t in tensors]}")
-    if all(t.device.type == "cpu" for t in tensors):
-        return linrec_plain(a, b, y0)
-    if b.device.type != "cuda" or any(t.device != b.device for t in tensors):
-        raise ValueError(f"linrec: unsupported devices "
-                         f"{[str(t.device) for t in tensors]}")
-    if b.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"linrec kernel takes float32 or complex64, got "
-                        f"{b.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("linrec: inputs must be contiguous")
-    y = torch.empty_like(b)
-    kernels.launch("linrec", a.data_ptr(), b.data_ptr(),
-                   None if y0 is None else y0.data_ptr(), y.data_ptr(),
-                   b.shape[0], b.shape[1], int(b.is_complex()),
-                   int(a.dim() == 2),
-                   torch.cuda.current_stream(b.device).cuda_stream)
-    return y
+    if not all(t.device.type == "cpu" for t in tensors):
+        _check_kernel_inputs(tensors, "linrec")
+    return _Linrec.apply(a, b, y0)
 
 
 def _as_tensor(v, like: torch.Tensor) -> torch.Tensor:
@@ -218,8 +328,13 @@ def linear_recurrence_2x2(m, v: torch.Tensor) -> torch.Tensor:
     On the CPU a per-step loop.  On the card m must be constant: its
     eigendecomposition m = P diag(l) P^-1 turns the system into two complex
     one-poles, z_i[n] = l_i z_i[n-1] + (P^-1 v[n])_i, one `linrec` launch,
-    and s = Re(P z)."""
+    and s = Re(P z).  The eigendecomposition is taken on the host, so there
+    a gradient passes to v but not to m: an m that requires one raises."""
     m = torch.as_tensor(m, dtype=v.dtype, device=v.device)
+    if v.device.type != "cpu" and m.requires_grad:
+        raise ValueError("linear_recurrence_2x2 on the card takes no "
+                         "gradient with respect to m (its eigenvectors are "
+                         "found on the host); m requires grad")
     if v.device.type == "cpu":
         mm = m.expand(v.shape[:-1] + (2, 2))
         s = torch.zeros(2, dtype=v.dtype)

@@ -1,6 +1,7 @@
 """The port's ops/iir against the JAX package's, float64 on the CPU, at the
 JAX package's own bars (tests/test_iir.py), and the plain recurrence with
-an initial state against a numpy loop."""
+an initial state against a numpy loop; `linrec`'s gradients by gradcheck
+and against `jax.grad` of the JAX package's filters."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,7 +9,9 @@ import pytest
 import torch
 from scipy.signal import lfilter
 
+from nelegan_tpu.metrics.haspi.ear_model import middle_ear as jax_middle_ear
 from nelegan_tpu.ops import iir as jiir
+from nelegan_tpu_torch.metrics.haspi.ear_model import middle_ear
 from nelegan_tpu_torch.ops import iir
 
 BQ_B = [0.937260390269893, -1.874520780539785, 0.937260390269893]
@@ -146,3 +149,92 @@ def test_fft_helpers_match_jax():
     assert [iir._fft_len(n) for n in (5, 100, 4097)] == [
         jiir._fft_len(n) for n in (5, 100, 4097)]
     assert iir._fft_len_ir(55296, 4096) == jiir._fft_len_ir(55296, 4096)
+
+
+# ---------------------------------------------------------------- gradients
+def _rand(rng, shape, complex_rows):
+    v = rng.randn(*shape)
+    return v + 1j * rng.randn(*shape) if complex_rows else v
+
+
+def _linrec_inputs(rows, n, per_step, complex_rows, seed):
+    rng = np.random.RandomState(seed)
+    a = 0.45 * _rand(rng, (rows, n) if per_step else (rows,), complex_rows)
+    return (torch.from_numpy(a), torch.from_numpy(_rand(rng, (rows, n),
+                                                        complex_rows)),
+            torch.from_numpy(_rand(rng, (rows,), complex_rows)))
+
+
+@pytest.mark.parametrize("with_y0", [False, True])
+@pytest.mark.parametrize("per_step", [False, True])
+@pytest.mark.parametrize("complex_rows", [False, True])
+def test_linrec_gradcheck(per_step, complex_rows, with_y0):
+    """The CPU path of linrec's autograd Function (the plain loops the
+    kernel is held against) against finite differences, in torch's
+    convention for complex gradients."""
+    a, b, y0 = (t.requires_grad_() for t in _linrec_inputs(
+        3, 17, per_step, complex_rows, 10))
+    y0 = y0 if with_y0 else None
+    assert type(iir.linrec(a, b, y0).grad_fn).__name__ == "_LinrecBackward"
+    assert torch.autograd.gradcheck(iir.linrec, (a, b, y0))
+
+
+@pytest.mark.parametrize("per_step", [False, True])
+@pytest.mark.parametrize("complex_rows", [False, True])
+def test_linrec_backward_plain_matches_loop_autograd(per_step, complex_rows):
+    """The plain adjoint (the card's formulas) against autograd through the
+    raw forward loop."""
+    a, b, y0 = (t.requires_grad_() for t in _linrec_inputs(
+        4, 60, per_step, complex_rows, 11))
+    g = torch.from_numpy(_rand(np.random.RandomState(12), (4, 60),
+                               complex_rows))
+    y = iir.linrec_plain(a, b, y0)
+    want = torch.autograd.grad(y, (b, a, y0), g)
+    got = iir.linrec_backward_plain(a.detach(), g, y.detach(), y0.detach())
+    for w, v in zip(want, got):
+        np.testing.assert_allclose(v.numpy(), w.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["one_pole", "biquad", "middle_ear"])
+def test_filter_gradients_match_jax(name):
+    """d sum(w * f(x)) / dx through linrec's adjoint against jax.grad of
+    the JAX package's scans, [2, 300] float64."""
+    jax_fn, torch_fn = {
+        "one_pole": (lambda x: jiir.one_pole(x, 0.9),
+                     lambda x: iir.one_pole(x, 0.9)),
+        "biquad": (lambda x: jiir.biquad(x, BQ_B, BQ_A),
+                   lambda x: iir.biquad(x, BQ_B, BQ_A)),
+        "middle_ear": (jax_middle_ear, middle_ear)}[name]
+    rng = np.random.RandomState(13)
+    x, w = rng.randn(2, 300), rng.randn(2, 300)
+    want = np.asarray(jax.jit(jax.grad(
+        lambda v: jnp.sum(jnp.asarray(w) * jax_fn(v))))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    (torch.from_numpy(w) * torch_fn(xt)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("per_step", [False, True])
+def test_one_pole_grad_of_a_matches_jax(per_step):
+    """d sum(w * one_pole(x, a)) / da through linrec's adjoint (its da) with
+    `a` per row and per step, against jax.grad of the JAX package's
+    one_pole, [2, 300] float64."""
+    rng = np.random.RandomState(15)
+    x, w = rng.randn(2, 300), rng.randn(2, 300)
+    a = rng.uniform(-0.9, 0.9, (2, 300) if per_step else (2, 1))
+    want = np.asarray(jax.jit(jax.grad(lambda v: jnp.sum(
+        jnp.asarray(w) * jiir.one_pole(jnp.asarray(x), v))))(jnp.asarray(a)))
+    at = torch.from_numpy(a).requires_grad_()
+    (torch.from_numpy(w) * iir.one_pole(torch.from_numpy(x), at)).sum(
+    ).backward()
+    np.testing.assert_allclose(at.grad.numpy(), want, rtol=1e-10, atol=1e-10)
+
+
+def test_linear_recurrence_2x2_refuses_grad_of_m_off_cpu():
+    """Off the CPU m is eigendecomposed on the host, so a gradient with
+    respect to it would be lost: it raises (the meta device stands in for
+    the card here)."""
+    with pytest.raises(ValueError, match="requires grad"):
+        iir.linear_recurrence_2x2(torch.eye(2, requires_grad=True),
+                                  torch.zeros(5, 2, device="meta"))
