@@ -53,15 +53,20 @@ Phases, in order; any failure raises:
      linrec launches) against the spectral fold the ear model uses (bar
      MIDDLE_EAR_BAR);
      `one_pole_cascade` (both forms) and `linear_recurrence_2x2` on the
-     card against the host's float64;
-  3b. gradient phase, `linrec`'s path, synthetic: a loss through the scan
-     form of HASPI's middle ear on [8, 55296] (eight 36864-sample
-     utterances at 24 kHz; no path of either package differentiates it, as
-     HASPI folds it into its spectrum) and PESQ's gain memory on [8, 143]
-     (the queued caller), then its backward; launch counts zeroed just
-     before and read just after (4 `linrec`, 4 `linrec_bwd`); the middle
-     ear's gradient against its spectral adjoint (MIDDLE_EAR_BAR), the gain
-     memory's against the CPU's float64 (LINREC_BAR);
+     card against the host's float64; float64 linrec and linrec_bwd (one
+     pole a row and a pole per step, with y0) at [8, 143] and [2, 200001]
+     against linrec_plain and linrec_backward_plain in float64 on the card
+     (LINREC_F64_BAR), timed by graph replay beside float32;
+  3b. gradient phase: a loss through the scan form of HASPI's middle ear
+     on [8, 55296] (eight 36864-sample utterances at 24 kHz; synthetic, as
+     no path of either package differentiates it: HASPI folds it into its
+     spectrum) and through PESQ of eight rows of the 36864-sample bucket
+     with their n_valid (its gain memory one linrec of [8, 143]), then its
+     backward; launch counts zeroed just before and read just after (4
+     `linrec`, 4 `linrec_bwd`); the middle ear's gradient against its
+     spectral adjoint (MIDDLE_EAR_BAR), PESQ's scores and its gradient with
+     respect to the degraded rows against the CPU's float64 (SCORE_BARS,
+     PESQ_GRAD_BAR in norm), zero past each row's n_valid;
   4. serving phase, the port's main path: `EnhanceServer` at full width
      (hidden 256, 6 blocks, 64 bands; weights from a numpy seed), batch 8,
      on 127.0.0.1:0; ten concurrent requests over two buckets, then three
@@ -118,21 +123,28 @@ Phases, in order; any failure raises:
      utterances/s with wav I/O and device work apart;
   8. scoring phase (`metrics/`, `cli/infer --metrics`), float32, TF32 off:
      the infer phase's 24 utterances go through `cli/infer --metrics
-     siib,haspi,estoi` (launch counts zeroed before and read after) and
-     through `score_corpus` with vmap_chunk 8; score_corpus (padded rows)
-     against score_batch within the reference package's bucketed bars; a
-     clean-cache hit equal to its cold fill and within CACHE_BAR of the
-     pair path; three utterances, one a bucket, against the CPU's float64
-     within SCORE_BARS, which the controls (TF32 on; SIIB's KLT in float32)
-     must fail; the ear model against tests/goldens/ear_model.npz
-     (EAR_GOLDEN_BAR); utterances/s per metric and for all three, cold and
-     warm, by host clock and CUDA events; one profile (busy share, top
-     device operations); SIIB's eigh time against its warm time;
+     siib,haspi,estoi,pesq,visqol` (launch counts zeroed before and read
+     after: one `linrec` launch for each of its 24 PESQ calls) and through
+     `score_corpus` with vmap_chunk 8 (one `linrec` launch a chunk);
+     score_corpus (padded rows) against score_batch within the reference
+     package's bucketed bars; a chunk-keyed clean-cache hit equal to its
+     cold fill and within CACHE_BAR of the pair path; a CleanSidePool in
+     chunks of 4: cold, warm on the same chunks and with enhanced_keys on
+     the PCM16 files, each equal to the upload path bit for bit; warm on
+     reshuffled chunks within CACHE_BAR of cold and of the uncached path
+     on those chunks; with its hits and misses; three utterances, one a
+     bucket, against the CPU's float64 within SCORE_BARS, which the
+     controls (TF32 on; SIIB's KLT in float32) must fail; PESQ with all three alignment stages on the
+     two-jump burst train against the CPU's float64; the ear model against
+     tests/goldens/ear_model.npz (EAR_GOLDEN_BAR); utterances/s per metric
+     and for all five, cold and warm, by host clock and CUDA events; one
+     profile (busy share, top device operations); SIIB's eigh time against
+     its warm time;
   9. one JSON line per phase, one of kernel records (each with its launches
      on the serving, training, streaming, infer, scoring and gradient paths
      and in the kernel phase; `launches` is its own path's: serving for
-     IMCRA and the cascade, the gradient phase for linrec and linrec_bwd),
-     the card line again, and last
+     IMCRA and the cascade, scoring for linrec, the gradient phase for
+     linrec_bwd), the card line again, and last
      `{"ok": true, "device": ...}`.
 """
 from __future__ import annotations
@@ -161,6 +173,7 @@ from nelegan_tpu_torch.data.wavio import read_wav, write_wav_pcm16
 from nelegan_tpu_torch.device import disable_tf32
 from nelegan_tpu_torch.dsp import imcra, mmse
 from nelegan_tpu_torch.dsp.stft import stft
+from nelegan_tpu_torch.metrics.clean_pool import CleanSidePool
 from nelegan_tpu_torch.metrics.haspi.ear_model import (_ME_A, _ME_B,
                                                        ear_model, middle_ear,
                                                        middle_ear_response)
@@ -247,16 +260,32 @@ MIDDLE_EAR_BAR = 1e-5    # the scan against the spectral fold, relative
 # Scoring phase bars against the CPU's float64 score of the same file, on
 # |card - cpu| / max(|cpu|, 1) (rel_errors), fixed in PERF.md before the
 # phase first ran: ~10 times the port's float32 error on the CPU, below the
-# control's (TF32 on for ESTOI and HASPI; SIIB's KLT and capacity in
-# float32, its arithmetic without the float64 the reference package gets
-# under x64), which must fail each.
-SCORE_BARS = {"estoi": 5e-6, "haspi": 5e-5, "siib": 5e-4}
+# control's (TF32 on; for SIIB its KLT and capacity in float32, its
+# arithmetic without the float64 the reference package gets under x64),
+# which must fail each.  PESQ's and ViSQOL's: the port's float32 on
+# the CPU is 1.0e-7 to 1.9e-7 from its float64 on 1-2.3 s crops of the
+# golden speech, so PESQ's bar is 2e-6; ViSQOL's is 1e-5, with room for the
+# algorithm cuDNN picks for its 3x3 box; TF32 (emulated on the CPU by
+# rounding the matrix products' and the box's operands) moves them by
+# 8.5e-6 to 9.7e-6 and 9.4e-5 to 3.8e-4.
+SCORE_BARS = {"estoi": 5e-6, "haspi": 5e-5, "siib": 5e-4, "pesq": 2e-6,
+              "visqol": 1e-5}
 HASPI_F32_BAR = 2e-3     # the reference package's own (COMPONENTS.md:38)
 EAR_GOLDEN_BAR = 5e-5    # float32 ear model on the card against the golden
 CACHE_BAR = 1e-5         # a clean-cache hit against the pair path
 # score_corpus against score_batch: tests/test_metrics_bucketed.py's bars
-CORPUS_BARS = {"estoi": 1e-3, "haspi": 5e-3}
-SCORE_METRICS = ("siib", "haspi", "estoi")
+CORPUS_BARS = {"estoi": 1e-3, "haspi": 5e-3, "pesq": 1e-3, "visqol": 1e-3}
+SCORE_METRICS = ("siib", "haspi", "estoi", "pesq", "visqol")
+# PESQ's gradient with respect to the degraded rows on the card (float32)
+# against the CPU's float64, in norm, fixed in PERF.md before the first run:
+# the port's float32 on the CPU reads 2.4e-6 at [4, 36864].
+PESQ_GRAD_BAR = 5e-5
+# float64 linrec and linrec_bwd against their plain loops in float64 on the
+# card, relative as LINREC_BAR: float64 round-off.
+LINREC_F64_BAR = 1e-12
+# tests/test_pesq.py's burst train with a delayed middle section, for the
+# alignment stages on the card
+BURSTS, BURST_LEN, GAP_LEN, JUMP = 10, 1920, 2880, 1900
 
 
 def card_line() -> str:
@@ -642,15 +671,15 @@ def cascade_phase(dev) -> dict:
 
 # ---------------------------------------------------------------- linrec
 def linrec_inputs(dev, rows: int, n: int, per_step: bool, cplx: bool,
-                  seed: int):
+                  seed: int, f64: bool = False):
     """Seeded a, b, y0 on the card: |a| in [0.5, 0.99] (complex: any
-    phase), b and y0 standard normal."""
+    phase), b and y0 standard normal; float32 (f64: float64)."""
     rng = np.random.RandomState(seed)
     shape = (rows, n) if per_step else (rows,)
     a = rng.uniform(0.5, 0.99, shape) * rng.choice([-1.0, 1.0], shape)
     b = rng.randn(rows, n)
     y0 = rng.randn(rows)
-    dt = torch.float32
+    dt = torch.float64 if f64 else torch.float32
     if cplx:
         a = np.abs(a) * np.exp(1j * rng.uniform(-np.pi, np.pi, shape))
         b = b + 1j * rng.randn(rows, n)
@@ -986,10 +1015,75 @@ def linrec_timings(dev) -> dict:
     short = {"shape": [8, PESQ_FRAMES],
              "forward_ms": graph_ms(lambda: iir.linrec(a, b, y0)),
              "backward_ms": graph_ms(lambda: iir.linrec_backward(a, g, y, y0)),
-             "one_sample_launch_ms": graph_ms(lambda: iir.linrec(a1, b1))}
+             "one_sample_launch_ms": graph_ms(lambda: iir.linrec(a1, b1)),
+             "plain_forward_ms": cuda_ms(lambda: iir.linrec_plain(a, b, y0),
+                                         calls=1, samples=3, warmup=1),
+             "plain_backward_ms": cuda_ms(
+                 lambda: iir.linrec_backward_plain(a, g, y, y0), calls=1,
+                 samples=3, warmup=1)}
+    for key, backward in (("forward", False), ("backward", True)):
+        short[f"{key}_bound_ms"], short[f"{key}_bound_by"] = bound(
+            *linrec_work(8, PESQ_FRAMES, False, False, backward))
     print(f"linrec times (graph replay; share on rotating inputs): {timed}; "
           f"[8, {PESQ_FRAMES}]: {short}")
     return {"forms": timed, "short_rows": short}
+
+
+def linrec_f64_checks(dev) -> dict:
+    """float64 linrec and linrec_bwd (db, da, dy0) with an initial state,
+    one pole a row and a pole per step, in the short-row form ([8, 143],
+    PESQ's gain memory) and over several windows of a cluster ([2,
+    200001]), against linrec_plain and linrec_backward_plain in float64 on
+    the card (bar LINREC_F64_BAR; the backward as adjoint_rows_errors),
+    and two backward runs bit for bit; then graph-replay times of one pole
+    a row at both shapes, float64 beside float32."""
+    checks = []
+    for rows, n, per_step, seed in ((8, PESQ_FRAMES, False, 60),
+                                    (8, PESQ_FRAMES, True, 61),
+                                    (2, 200001, False, 62),
+                                    (2, 200001, True, 63)):
+        a, b, y0 = linrec_inputs(dev, rows, n, per_step, False, seed,
+                                 f64=True)
+        g = torch.as_tensor(np.random.RandomState(seed + 100).randn(rows, n),
+                            device=dev)
+        y = iir.linrec(a, b, y0)
+        got = iir.linrec_backward(a, g, y, y0)
+        again = iir.linrec_backward(a, g, y, y0)
+        want = iir.linrec_plain(a, b, y0)
+        want_b = iir.linrec_backward_plain(a, g, want, y0)
+        torch.cuda.synchronize()
+        rec = {"shape": [rows, n], "a": "per step" if per_step else "per row",
+               "type": "float64",
+               "rel_vs_plain": float(((y - want).abs().amax(1)
+                                      / want.abs().amax(1)).max()),
+               "max_abs_err": float((y - want).abs().max()),
+               "backward_vs_plain": adjoint_rows_errors(got, want_b, want,
+                                                        y0),
+               "bit_equal_runs": all(torch.equal(u, v)
+                                     for u, v in zip(got, again))}
+        checks.append(rec)
+        errs = [rec["rel_vs_plain"]] + [
+            v for k, v in rec["backward_vs_plain"].items()
+            if k.endswith("_rel")]
+        print(f"linrec float64 at {rec['shape']} ({rec['a']}, with y0) "
+              f"against the plain loops in float64: {rec}")
+        if not rec["bit_equal_runs"] or not all(v < LINREC_F64_BAR
+                                                for v in errs):
+            raise AssertionError(f"linrec float64: {rec}")
+    times = {}
+    for rows, n in ((8, PESQ_FRAMES), (2, 200001)):
+        for f64 in (False, True):
+            a, b, y0 = linrec_inputs(dev, rows, n, False, False, 64, f64=f64)
+            g = torch.randn(b.shape, dtype=b.dtype, device=dev,
+                            generator=torch.Generator(dev).manual_seed(3))
+            y = iir.linrec(a, b, y0)
+            times[f"{rows}x{n}_{'float64' if f64 else 'float32'}"] = {
+                "forward_ms": graph_ms(lambda: iir.linrec(a, b, y0)),
+                "backward_ms": graph_ms(
+                    lambda: iir.linrec_backward(a, g, y, y0))}
+    print(f"linrec float64 against float32, graph replay, one pole a row: "
+          f"{times}")
+    return {"checks": checks, "times": times}
 
 
 def linrec_phase(dev) -> list:
@@ -1013,6 +1107,7 @@ def linrec_phase(dev) -> list:
     gradients = filter_gradient_checks(dev)
     me = middle_ear_check(dev)
     users = iir_checks(dev)
+    f64 = linrec_f64_checks(dev)
     times = linrec_timings(dev)
     timed = times["forms"]
 
@@ -1089,9 +1184,15 @@ def linrec_phase(dev) -> list:
         "library_rel_err": lib_rel, "profiler_ms": prof_ms,
         "eager_ms": eager_ms, "roofline_share": fwd_t["roofline_share"],
         "forms": timed, "short_rows": times["short_rows"],
+        # the path's shape: PESQ's gain memory, [8, 143] a batch
+        "path_shape": [8, PESQ_FRAMES],
+        "path_ms": times["short_rows"]["forward_ms"],
+        "path_plain_ms": times["short_rows"]["plain_forward_ms"],
+        "path_bound_ms": times["short_rows"]["forward_bound_ms"],
         "rel_err_vs_plain": main["rel_vs_plain"],
         "rel_err_vs_host_f64": main["rel_vs_host_f64"],
-        "other_shapes": others, "middle_ear": me, "iir_users": users}
+        "other_shapes": others, "middle_ear": me, "iir_users": users,
+        "float64": f64}
     backward_rec = {
         "name": "linrec_bwd", **common,
         "replaces": "nelegan_tpu/ops/iir.py:38 (JAX's autodiff of "
@@ -1105,36 +1206,60 @@ def linrec_phase(dev) -> list:
         "library": f"the same cuFFT convolution on g's reversed rows (db)",
         "library_rel_err": lib_b_rel, "profiler_ms": prof_bwd_ms,
         "roofline_share": bwd_t["roofline_share"], "checks": backward,
+        "path_shape": [8, PESQ_FRAMES],
+        "path_ms": times["short_rows"]["backward_ms"],
+        "path_plain_ms": times["short_rows"]["plain_backward_ms"],
+        "path_bound_ms": times["short_rows"]["backward_bound_ms"],
         "vs_plain_autograd": vs_autograd, "filter_gradients": gradients}
     return [forward_rec, backward_rec]
 
 
+def pesq_rows(seed: int, rows: int = 8):
+    """[rows, BUCKET] float32 reference and degraded rows cut from the
+    golden speech and noise at seeded offsets and scales, zero past each
+    row's n_valid (from 30001 to BUCKET samples, the first row full)."""
+    clean, noise = speech_signals()
+    rng = np.random.RandomState(seed)
+    nv = rng.randint(30001, BUCKET + 1, rows)
+    nv[0] = BUCKET
+    ref = np.zeros((rows, BUCKET), np.float32)
+    deg = np.zeros((rows, BUCKET), np.float32)
+    for j, m in enumerate(nv):
+        off, sc = int(rng.randint(0, clean.size)), float(rng.uniform(0.5, 1.5))
+        ref[j, :m] = crop(clean, m, off, sc)
+        deg[j, :m] = (rng.uniform(0.6, 1.2) * ref[j, :m]
+                      + crop(noise, m, off + 99, 0.3 * sc))
+    return ref, deg, nv
+
+
 def gradient_phase(dev) -> dict:
-    """This slice's path, a synthetic loss through linrec's users and
-    back: the scan form of HASPI's middle ear over eight 36864-sample
-    utterances at 24 kHz ([8, 55296]: a one-pole, then the biquad's complex
-    pole pair; no path of either package differentiates it, as HASPI folds
-    it into its spectrum) and PESQ's gain memory over their frames ([8,
-    143]: a = 0.2 a row, y0 = 1; the queued caller).  Launch counts
-    are zeroed just before and read just after: 4 forward and 4 backward
-    launches.  The middle ear's gradient against its spectral adjoint (the
-    response's conjugate on the DFT grid), the gain memory's against the
-    port's CPU float64; raises beyond MIDDLE_EAR_BAR and LINREC_BAR."""
+    """The gradient path: a loss through the scan form of HASPI's middle ear
+    over eight 36864-sample utterances at 24 kHz ([8, 55296]: a one-pole,
+    then the biquad's complex pole pair; synthetic, as HASPI folds it into
+    its spectrum) and through PESQ (`pesq_p862_16k`) of eight rows of the
+    36864-sample bucket with their n_valid, whose gain memory is one linrec
+    of [8, 143], then backward.  Launch counts are zeroed just before and
+    read just after: 4 forward and 4 backward launches.  The middle ear's
+    gradient against its spectral adjoint (the response's conjugate on the
+    DFT grid, MIDDLE_EAR_BAR); PESQ's scores and its gradient with respect
+    to the degraded rows against the port's CPU float64 (SCORE_BARS,
+    PESQ_GRAD_BAR, in norm)."""
     rng = np.random.RandomState(28)
     x, w = (torch.as_tensor(rng.randn(8, LINREC_N), dtype=torch.float32,
                             device=dev) for _ in range(2))
-    h_np = rng.uniform(0, 1, (8, PESQ_FRAMES))
-    h = torch.as_tensor(h_np, dtype=torch.float32, device=dev)
-    w2_np = rng.randn(8, PESQ_FRAMES)
+    ref_np, deg_np, nv_np = pesq_rows(29)
+    w2_np = rng.uniform(0.5, 1.5, 8)
+    ref = torch.as_tensor(ref_np, device=dev)
+    deg = torch.as_tensor(deg_np, device=dev)
+    nv = torch.as_tensor(nv_np, device=dev)
     w2 = torch.as_tensor(w2_np, dtype=torch.float32, device=dev)
     x.requires_grad_()
-    h.requires_grad_()
-    a, y0 = (torch.full((8,), v, device=dev) for v in (0.2, 1.0))
+    deg.requires_grad_()
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    loss = ((w * middle_ear(x)).sum()
-            + (w2 * iir.linrec(a, 0.8 * h, y0)).sum())
+    scores = metrics.pesq_p862_16k(ref, deg, nv)
+    loss = (w * middle_ear(x)).sum() + (w2 * scores).sum()
     loss.backward()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1145,23 +1270,31 @@ def gradient_phase(dev) -> dict:
                              * middle_ear_response(m, torch.complex64, dev)
                              .conj())[:, :LINREC_N].real
     me_rel = float((x.grad - adjoint).abs().max() / adjoint.abs().max())
-    h64 = torch.from_numpy(h_np).requires_grad_()
-    (torch.from_numpy(w2_np) * iir.linrec(
-        torch.full((8,), 0.2, dtype=torch.float64), 0.8 * h64,
-        torch.ones(8, dtype=torch.float64))).sum().backward()
-    gm_rel = float(np.abs(h.grad.cpu().numpy() - h64.grad.numpy()).max()
-                   / h64.grad.abs().max())
-    res = {"middle_ear_shape": [8, LINREC_N], "gain_memory_shape":
-           [8, PESQ_FRAMES], "launches": launches,
-           "loss": float(loss.detach()),
+    deg64 = torch.from_numpy(deg_np.astype(np.float64)).requires_grad_()
+    scores64 = metrics.pesq_p862_16k(torch.from_numpy(
+        ref_np.astype(np.float64)), deg64, torch.from_numpy(nv_np))
+    (torch.from_numpy(w2_np) * scores64).sum().backward()
+    g32 = deg.grad.double().cpu()
+    grad_rel = float((g32 - deg64.grad).norm() / deg64.grad.norm())
+    score_err = max(rel_errors({"pesq": float(a)}, {"pesq": float(b)})["pesq"]
+                    for a, b in zip(scores.detach().cpu(), scores64.detach()))
+    res = {"middle_ear_shape": [8, LINREC_N], "pesq_shape": [8, BUCKET],
+           "n_valid": nv_np.tolist(), "gain_memory_shape": [8, PESQ_FRAMES],
+           "launches": launches, "loss": float(loss.detach()),
+           "pesq": scores.detach().cpu().tolist(),
            "finite": bool(torch.isfinite(x.grad).all()
-                          and torch.isfinite(h.grad).all()),
+                          and torch.isfinite(deg.grad).all()),
            "middle_ear_grad_rel_vs_spectral_adjoint": me_rel,
-           "gain_memory_grad_rel_vs_cpu_f64": gm_rel, "wall_ms": wall_ms}
+           "pesq_rel_vs_cpu_f64": score_err,
+           "pesq_grad_rel_vs_cpu_f64": grad_rel,
+           "padded_grad_zero": bool(all(
+               not deg.grad[j, int(nv_np[j]):].any() for j in range(8))),
+           "wall_ms": wall_ms}
     print(f"gradient path: {res}")
     if (launches["linrec"] != 4 or launches["linrec_bwd"] != 4
             or not res["finite"] or me_rel >= MIDDLE_EAR_BAR
-            or gm_rel >= LINREC_BAR):
+            or score_err >= SCORE_BARS["pesq"]
+            or grad_rel >= PESQ_GRAD_BAR or not res["padded_grad_zero"]):
         raise AssertionError(f"gradient path: {res}")
     return res
 
@@ -2251,27 +2384,131 @@ def siib_f32_klt(clean: np.ndarray, noise: np.ndarray, enh: np.ndarray,
     return float(_capacity(vx, vy, _klt(vx, scnt))[0])
 
 
-def timed_corpus(triple, metric_names) -> dict:
-    """score_corpus (vmap_chunk 8) of the corpus: host clock around the
-    call, which ends in its one device-to-host copy, and CUDA events."""
+def timed_corpus(triple, metric_names, vmap_chunk: int = 8, **kw) -> dict:
+    """score_corpus of the corpus: host clock around the call, which ends in
+    its one device-to-host copy, and CUDA events; the kernels' launches in
+    the call."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    before = dict(kernels.launches)
     t0 = time.perf_counter()
     start.record()
     scores = metrics.score_corpus(*triple, norm=False, metrics=metric_names,
-                                  vmap_chunk=8, device="cuda")
+                                  vmap_chunk=vmap_chunk, device="cuda", **kw)
     end.record()
     end.synchronize()
     host = time.perf_counter() - t0
     return {"host_s": host, "events_s": start.elapsed_time(end) / 1e3,
-            "utterances_per_s": len(scores) / host, "scores": scores}
+            "utterances_per_s": len(scores) / host, "scores": scores,
+            "launches": {k: v - before[k] for k, v in kernels.launches.items()
+                         if v != before[k]}}
+
+
+def pool_checks(triple, keys, names) -> dict:
+    """score_corpus of all five metrics through a CleanSidePool, in chunks
+    of 4: cold; warm on the same chunks (every clean-side half and raw
+    clean and noise row a hit), equal to cold bit for bit; warm on
+    reshuffled chunks (other compositions, all hits), within CACHE_BAR of
+    cold and of the uncached call on those chunks (a row's neighbours in
+    its chunk set its buffers and so its round-off, pool or not); then
+    with enhanced_keys on the PCM16 files (the enhanced rows kept on the
+    card as int16), cold and warm equal to the upload path on the same
+    chunks bit for bit; hits, misses and resident bytes after each; times
+    by host clock and CUDA events."""
+    pool = CleanSidePool()
+    n = len(keys)
+    runs, counts = {}, {}
+
+    def run(label, order, cache=pool, **kw):
+        tr = tuple([lst[i] for i in order] for lst in triple)
+        if cache is not None:
+            kw.update(clean_cache=cache, clean_keys=[keys[i] for i in order])
+        r = timed_corpus(tr, SCORE_METRICS, vmap_chunk=4, **kw)
+        r["scores"] = [r["scores"][order.index(i)] for i in range(n)]
+        runs[label] = r
+        if cache is not None:
+            counts[label] = {"hits": pool.hits, "misses": pool.misses,
+                             "rows": len(pool),
+                             "resident_bytes": pool.resident_bytes}
+
+    ident = list(range(n))
+    shuffled = [int(i) for i in np.random.RandomState(5).permutation(n)]
+    run("cold", ident)
+    run("warm", ident)
+    run("warm_reshuffled", shuffled)
+    run("uncached_reshuffled", shuffled, cache=None)
+    run("enhanced_keys_cold", ident, enhanced_keys=names)
+    run("enhanced_keys_warm", ident, enhanced_keys=names)
+    cold = runs["cold"]["scores"]
+    shuffled_scores = runs["warm_reshuffled"]["scores"]
+    res = {"counts": counts,
+           "equal_to_cold": {k: runs[k]["scores"] == cold for k in (
+               "warm", "enhanced_keys_cold", "enhanced_keys_warm")},
+           "reshuffled_vs_cold": max_rel(shuffled_scores, cold),
+           "reshuffled_vs_uncached": max_rel(
+               shuffled_scores, runs["uncached_reshuffled"]["scores"]),
+           "times": {k: {f: v for f, v in r.items() if f != "scores"}
+                     for k, r in runs.items()}}
+    chunks = counts["cold"]["misses"] // 5     # 5 pooled signatures a chunk
+    want = {"cold": (0, 5), "warm": (5, 5), "warm_reshuffled": (10, 5),
+            "enhanced_keys_cold": (15, 6), "enhanced_keys_warm": (21, 6)}
+    want = {k: (h * chunks, m * chunks) for k, (h, m) in want.items()}
+    got = {k: (c["hits"], c["misses"]) for k, c in counts.items()}
+    print(f"CleanSidePool: {json.dumps(res)}")
+    if not (all(res["equal_to_cold"].values()) and got == want
+            and all(v < CACHE_BAR for k in ("reshuffled_vs_cold",
+                                            "reshuffled_vs_uncached")
+                    for v in res[k].values()) and chunks > 0):
+        raise AssertionError(f"CleanSidePool: {res}, hits and misses {got}, "
+                             f"expected {want}")
+    return res
+
+
+def burst_pair():
+    """tests/test_pesq.py's burst train, and a copy whose middle section is
+    delayed by JUMP samples (delay 0 -> JUMP -> 0), float64."""
+    rng = np.random.default_rng(0)
+    base = np.concatenate([g for _ in range(BURSTS) for g in (
+        0.3 * rng.standard_normal(BURST_LEN),
+        0.003 * rng.standard_normal(GAP_LEN))])
+    p = BURST_LEN + GAP_LEN
+    a, b = 3 * p, 7 * p
+    return base, np.concatenate([base[:a], np.zeros(JUMP), base[a:b - JUMP],
+                                 base[b:]])
+
+
+def alignment_check(dev) -> dict:
+    """PESQ with all three alignment stages (align_bad_intervals) on the
+    two-jump burst train: card float32 against CPU float64 (SCORE_BARS's
+    PESQ bar), and above the utterance stage alone, as the bad-interval
+    stage repairs the second jump."""
+    ref, deg = burst_pair()
+    card = {}
+    for key, kw in (("bad_intervals", {"align_bad_intervals": True}),
+                    ("utterances", {"align_utterances": True})):
+        card[key] = float(metrics.pesq_p862(
+            torch.as_tensor(ref, dtype=torch.float32, device=dev),
+            torch.as_tensor(deg, dtype=torch.float32, device=dev), **kw))
+    cpu = float(metrics.pesq_p862(torch.from_numpy(ref), torch.from_numpy(deg),
+                                  align_bad_intervals=True))
+    res = {"samples": int(ref.size), "card_f32": card, "cpu_f64": cpu,
+           "rel": rel_errors({"pesq": card["bad_intervals"]},
+                             {"pesq": cpu})["pesq"]}
+    print(f"PESQ, all alignment stages, on the card: {res}")
+    if not (res["rel"] < SCORE_BARS["pesq"]
+            and card["bad_intervals"] > card["utterances"] + 0.3):
+        raise AssertionError(f"PESQ alignment on the card: {res}")
+    return res
 
 
 def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
-    """SIIB, HASPI and ESTOI of the infer phase's 24 utterances on the card
+    """The five metrics of the infer phase's 24 utterances on the card
     through `cli/infer --metrics` (the path; launch counts zeroed before
-    and read after) and `score_corpus`; every check raises."""
+    and read after: one linrec launch for each PESQ call, one a
+    `score_batch` row) and `score_corpus`, plain, with a chunk-keyed clean
+    cache and with a CleanSidePool; PESQ's alignment stages; every check
+    raises."""
     t0 = time.perf_counter()
     corpus = f"{tmp}/corpus"
     args = ["--test-clean", f"{corpus}/Clean", "--test-noise",
@@ -2287,9 +2524,12 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
     n = len(names)
     if not (n == inferred["utterances"]
             and launches["imcra_scan"] == cli["batches"]
+            and launches["linrec"] == n and launches["linrec_bwd"] == 0
+            and all(set(r) == set(SCORE_METRICS) for r in batch)
             and all(np.isfinite(v) for r in batch for v in r.values())):
         raise AssertionError(f"scoring CLI: {n} scored, {launches} launches "
-                             f"for {cli['batches']} batches")
+                             f"for {cli['batches']} batches and {n} PESQ "
+                             f"calls")
     print(f"cli/infer --metrics: {n} utterances scored in {sub['seconds']:.3f}"
           f" s on the card (first scoring of the run); means {sub['means']}; "
           f"launches {launches}")
@@ -2303,8 +2543,8 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
     enhs = [read(f"{tmp}/scored", nm) for nm in names]
     triple = (cleans, noises, enhs)
 
-    # times: each metric alone, then all three, cold (first call at the
-    # bucketed shapes) and warm
+    # times: each metric alone, then all five, cold (first call at the
+    # bucketed shapes) and warm; PESQ launches linrec once a chunk
     times = {}
     for key, mm in [(m, (m,)) for m in SCORE_METRICS] + [("all",
                                                           SCORE_METRICS)]:
@@ -2312,6 +2552,13 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
         times[key] = {k: {f: v for f, v in r.items() if f != "scores"}
                       for k, r in (("cold", cold), ("warm", warm))}
     corpus_scores = warm["scores"]
+    lens = np.array([min(len(c), len(z), len(e)) for c, z, e in
+                     zip(*triple)])
+    per_bucket = np.unique(-(-lens // 16384), return_counts=True)[1]
+    n_chunks = int(sum(-(-per_bucket // 8)))
+    if times["pesq"]["warm"]["launches"].get("linrec") != n_chunks:
+        raise AssertionError(f"score_corpus PESQ: {times['pesq']['warm']} "
+                             f"for {n_chunks} chunks")
     t1 = time.perf_counter()
     warm_batch = metrics.score_batch(*triple, norm=False, device="cuda")
     times["score_batch_warm"] = {"host_s": time.perf_counter() - t1}
@@ -2321,7 +2568,7 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
         raise AssertionError("score_batch differs from the CLI's scores")
 
     # 1. score_corpus (padded rows, n_valid) against score_batch (trimmed)
-    corpus_err = {"estoi": 0.0, "haspi": 0.0, "siib": 0.0}
+    corpus_err = {m: 0.0 for m in SCORE_METRICS}
     for c, b in zip(corpus_scores, batch):
         for m in CORPUS_BARS:
             err = abs(c[m] - b[m]) / max(abs(b[m]), 1.0)
@@ -2349,6 +2596,10 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
                              f"against the pair path {cache_err}")
     print(f"clean-cache hit: equal to its cold fill; against the pair path "
           f"{cache_err}; {len(cache)} entries; warm {hit_s:.3f} s")
+    pooled = pool_checks(triple, bases, names)
+    if (pooled["times"]["cold"]["launches"].get("linrec")
+            != int(sum(-(-per_bucket // 4)))):
+        raise AssertionError(f"pool: {pooled['times']['cold']['launches']}")
 
     # 3. the card's float32 against the CPU's float64, one per bucket
     pick = [names.index(nm) for nm in names if nm.startswith(("u00", "u08",
@@ -2379,12 +2630,14 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
                for i, w, g, t, k in zip(pick, cpu, card, tf32, klt32)]
     print(f"scores of {json.dumps(per_utt)}")
     print(f"card float32 against CPU float64 ({[names[i] for i in pick]}): "
-          f"{card_err}, bars {SCORE_BARS}; controls (ESTOI, HASPI: TF32 on; "
+          f"{card_err}, bars {SCORE_BARS}; controls (TF32 on; "
           f"SIIB: KLT in float32) {control}; CPU float64 took {cpu_s:.1f} s")
     if not all(card_err[m] < SCORE_BARS[m] for m in SCORE_BARS):
         raise AssertionError(f"card scores beyond the bars: {card_err}")
     if not all(control[m] >= SCORE_BARS[m] for m in SCORE_BARS):
         raise AssertionError(f"a control passes the bars: {control}")
+
+    aligned = alignment_check(dev)
 
     # 4. the ear model on the card against the golden
     g = np.load(REPO / "tests" / "goldens" / "ear_model.npz")
@@ -2427,6 +2680,7 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
            "cli_first_utterances_per_s": n / sub["seconds"],
            "times": times, "corpus_vs_batch": corpus_err,
            "cache_vs_pair": cache_err, "cache_hit_s": hit_s,
+           "pool": pooled, "alignment": aligned,
            "card_vs_cpu_f64": card_err, "bars": SCORE_BARS,
            "scores_checked": per_utt,
            "control": control, "haspi_within_reference_bar": haspi_ref_bar,
@@ -2438,7 +2692,7 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
            "siib_eigh_share": eigh_ms / siib_ms,
            "phase_s": time.perf_counter() - t0}
     print(f"scoring: warm {times['all']['warm']['utterances_per_s']:.1f} "
-          f"utterances/s (all three, score_corpus), cold "
+          f"utterances/s (all five, score_corpus), cold "
           f"{times['all']['cold']['utterances_per_s']:.1f}; busy "
           f"{res['busy_share']:.3f}; SIIB eigh {eigh_ms:.2f} of {siib_ms:.2f}"
           f" ms; phase {res['phase_s']:.1f} s")
@@ -2474,10 +2728,10 @@ def main() -> None:
         rec["scoring_launches"] = scored["launches"][rec["name"]]
         rec["kernel_phase_launches"] = checked[rec["name"]]
         rec["gradient_launches"] = gradient["launches"][rec["name"]]
-    # linrec's path is the gradient phase, a synthetic one (scoring folds the
-    # middle ear into the ear model's spectrum)
-    for rec in records[2:]:
-        rec["launches"] = gradient["launches"][rec["name"]]
+    # linrec's path is scoring (PESQ's gain memory through cli/infer
+    # --metrics), linrec_bwd's the gradient phase (PESQ's gradient)
+    records[2]["launches"] = scored["launches"]["linrec"]
+    records[3]["launches"] = gradient["launches"]["linrec_bwd"]
     records[0]["training_featurized_batches"] = training["featurized_batches"]
     records[0]["streaming_steps"] = streamed["steps"]
     for rec in records:

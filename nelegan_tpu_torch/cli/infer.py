@@ -11,15 +11,14 @@ corpus comes back in one device-to-host copy at the end.
     python -m nelegan_tpu_torch.cli.infer \\
         --test-clean .../Test/Clean --test-noise .../Test/Noise \\
         --checkpoint ./chkpt [--torch-checkpoint chkpt_GD.pt] \\
-        --output ./output_wav [--metrics siib,haspi,estoi] \\
+        --output ./output_wav [--metrics siib,haspi,estoi,pesq,visqol] \\
         [--subsets Cafeteria,AirportAnnouncement] [--device cuda]
 
-`--metrics` takes any subset of siib,haspi,estoi, the metrics ported so
-far (PESQ and ViSQOL are not, and asking for them fails); the default ""
-writes the wavs only.  With metrics, the written files of each noise-type
-subset are read back and scored raw (norm=False) by `metrics.score_batch`
-on the same device, and each subset's means are printed as the reference
-package's CLI prints them.
+`--metrics` takes any subset of siib,haspi,estoi,pesq,visqol (the default:
+all five); "" writes the wavs only.  With metrics, the written files of each
+noise-type subset are read back and scored raw (norm=False) by
+`metrics.score_batch` on the same device, and each subset's means are
+printed as the reference package's CLI prints them.
 """
 from __future__ import annotations
 
@@ -35,8 +34,7 @@ from nelegan_tpu_torch.data.pipeline import (BucketedLoader, CorpusIndex,
                                              get_filepaths)
 from nelegan_tpu_torch.data.wavio import read_wav, write_wav_pcm16
 from nelegan_tpu_torch.device import disable_tf32, resolve_device
-from nelegan_tpu_torch.metrics import (ALL_METRICS, PORTED_METRICS,
-                                       not_ported, score_batch)
+from nelegan_tpu_torch.metrics import ALL_METRICS, score_batch
 from nelegan_tpu_torch.train.checkpoint import load_generator
 
 
@@ -53,10 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default="./output_wav")
     p.add_argument("--num-utts", type=int, default=960)
     p.add_argument("--batch-size", type=int, default=8)
-    p.add_argument("--metrics", default="",
-                   help="comma-separated subset of siib,haspi,estoi (the "
-                        "ported metrics; pesq and visqol are not ported); "
-                        "'' (the default) writes the wavs only")
+    p.add_argument("--metrics", default=",".join(ALL_METRICS),
+                   help="comma-separated subset of "
+                        f"{','.join(ALL_METRICS)} (the default: all five); "
+                        "'' writes the wavs only")
     p.add_argument("--subsets", default="Cafeteria,AirportAnnouncement",
                    help="noise-type subsets whose metric means are printed")
     p.add_argument("--device", default="cuda",
@@ -69,11 +67,9 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     metrics = tuple(m.strip() for m in args.metrics.split(",") if m.strip())
     for m in metrics:
-        if m not in PORTED_METRICS:
-            if m in ALL_METRICS:
-                raise SystemExit(f"--metrics {m}: {not_ported(m)}")
+        if m not in ALL_METRICS:
             raise SystemExit(f"--metrics {m}: unknown metric; choose from "
-                             f"{','.join(PORTED_METRICS)}")
+                             f"{','.join(ALL_METRICS)}")
     if not (args.checkpoint or args.torch_checkpoint):
         raise SystemExit("need --checkpoint or --torch-checkpoint")
     if not os.path.isdir(args.test_clean):

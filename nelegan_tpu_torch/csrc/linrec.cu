@@ -1,15 +1,18 @@
 // First-order linear recurrence y[n] = a[n] * y[n-1] + b[n] along each row
 // of [rows, n], from an initial state y[-1] per row (0 when none is given),
 // and its adjoint.  `a` is given per step ([rows, n]) or once per row
-// ([rows]); rows are real float32 or complex64 (interleaved re, im).
+// ([rows]); rows are real float32, real float64 or complex64 (interleaved
+// re, im).  float64 serves parity runs of the metrics on the card (PESQ's
+// gain memory, and gradients through it, in the CPU's precision).
 //
 // Replaces: nelegan_tpu/ops/iir.py, the `jax.lax.associative_scan`s of
 // `one_pole` (iir.py:38), of the block carries of `one_pole_blocked`
 // (iir.py:83) and of `linear_recurrence_2x2` (iir.py:240, which the port
 // runs as two complex one-poles of its constant matrix's eigenvalues), and
-// what JAX's autodiff makes of them; the next metric (PESQ's short-term gain
-// memory, metrics/pesq.py:211) is the same scan.  Torch has no associative
-// scan, and a loop over samples in Python costs a launch a sample.
+// what JAX's autodiff makes of them, and of PESQ's short-term gain memory
+// (metrics/pesq.py:211, `_smooth_gain`), the same scan.  Torch has no
+// associative scan, and a loop over samples in Python costs a launch a
+// sample.
 //
 // The adjoint (`linrec_bwd`), for the output's gradient g, in torch's
 // convention for complex gradients:
@@ -84,22 +87,31 @@ struct __align__(8) Cx {
 };
 
 __device__ __forceinline__ float mul(float x, float y) { return x * y; }
+__device__ __forceinline__ double mul(double x, double y) { return x * y; }
 __device__ __forceinline__ Cx mul(Cx x, Cx y) {
   return Cx{x.re * y.re - x.im * y.im, x.re * y.im + x.im * y.re};
 }
 __device__ __forceinline__ float add(float x, float y) { return x + y; }
+__device__ __forceinline__ double add(double x, double y) { return x + y; }
 __device__ __forceinline__ Cx add(Cx x, Cx y) {
   return Cx{x.re + y.re, x.im + y.im};
 }
 __device__ __forceinline__ float conj_(float x) { return x; }
+__device__ __forceinline__ double conj_(double x) { return x; }
 __device__ __forceinline__ Cx conj_(Cx x) { return Cx{x.re, -x.im}; }
 __device__ __forceinline__ float shfl_up(float v, int d) {
+  return __shfl_up_sync(kFull, v, d);
+}
+__device__ __forceinline__ double shfl_up(double v, int d) {
   return __shfl_up_sync(kFull, v, d);
 }
 __device__ __forceinline__ Cx shfl_up(Cx v, int d) {
   return Cx{__shfl_up_sync(kFull, v.re, d), __shfl_up_sync(kFull, v.im, d)};
 }
 __device__ __forceinline__ float shfl_down(float v, int d) {
+  return __shfl_down_sync(kFull, v, d);
+}
+__device__ __forceinline__ double shfl_down(double v, int d) {
   return __shfl_down_sync(kFull, v, d);
 }
 __device__ __forceinline__ Cx shfl_down(Cx v, int d) {
@@ -109,14 +121,19 @@ __device__ __forceinline__ Cx shfl_down(Cx v, int d) {
 __device__ __forceinline__ float shfl_idx(float v, int src) {
   return __shfl_sync(kFull, v, src);
 }
+__device__ __forceinline__ double shfl_idx(double v, int src) {
+  return __shfl_sync(kFull, v, src);
+}
 __device__ __forceinline__ Cx shfl_idx(Cx v, int src) {
   return Cx{__shfl_sync(kFull, v.re, src), __shfl_sync(kFull, v.im, src)};
 }
 template <class T> __device__ __forceinline__ T one();
 template <> __device__ __forceinline__ float one<float>() { return 1.f; }
+template <> __device__ __forceinline__ double one<double>() { return 1.0; }
 template <> __device__ __forceinline__ Cx one<Cx>() { return Cx{1.f, 0.f}; }
 template <class T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ double zero<double>() { return 0.0; }
 template <> __device__ __forceinline__ Cx zero<Cx>() { return Cx{0.f, 0.f}; }
 
 // The affine map y -> A y + z.  `then(e, l)` is e followed by l.
@@ -641,35 +658,51 @@ int launch(const Args<T>& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The element types, as `kind` names them.
+enum Kind { kFloat32 = 0, kComplex64 = 1, kFloat64 = 2 };
+
+template <class T, bool kRev>
+int dispatch_type(const void* a, const void* b, const void* y0,
+                  const void* y, void* out, void* da, void* dy0, int rows,
+                  int n, int a_per_step, cudaStream_t s) {
+  const Args<T> p{(const T*)a, (const T*)b, (const T*)y0, (const T*)y,
+                  (T*)out, (T*)da, (T*)dy0, rows, n};
+  return a_per_step ? launch<T, true, kRev>(p, s)
+                    : launch<T, false, kRev>(p, s);
+}
+
 template <bool kRev>
 int dispatch(const void* a, const void* b, const void* y0, const void* y,
-             void* out, void* da, void* dy0, int rows, int n, int is_complex,
+             void* out, void* da, void* dy0, int rows, int n, int kind,
              int a_per_step, void* stream) {
   if (rows < 0 || n < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0 || n == 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (is_complex) {
-    const Args<Cx> p{(const Cx*)a, (const Cx*)b, (const Cx*)y0,
-                     (const Cx*)y, (Cx*)out, (Cx*)da, (Cx*)dy0, rows, n};
-    return a_per_step ? launch<Cx, true, kRev>(p, s)
-                      : launch<Cx, false, kRev>(p, s);
+  switch (kind) {
+    case kFloat32:
+      return dispatch_type<float, kRev>(a, b, y0, y, out, da, dy0, rows, n,
+                                        a_per_step, s);
+    case kComplex64:
+      return dispatch_type<Cx, kRev>(a, b, y0, y, out, da, dy0, rows, n,
+                                     a_per_step, s);
+    case kFloat64:
+      return dispatch_type<double, kRev>(a, b, y0, y, out, da, dy0, rows, n,
+                                         a_per_step, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const Args<float> p{(const float*)a, (const float*)b, (const float*)y0,
-                      (const float*)y, (float*)out, (float*)da, (float*)dy0,
-                      rows, n};
-  return a_per_step ? launch<float, true, kRev>(p, s)
-                    : launch<float, false, kRev>(p, s);
 }
 
 }  // namespace
 
 // a: [rows, n] (a_per_step) or [rows]; b, y: [rows, n]; y0: [rows] or NULL.
-// All contiguous, float32 (is_complex 0) or complex64 (is_complex 1).
+// All contiguous, of the type `kind` names: 0 float32, 1 complex64, 2
+// float64.
 extern "C" int linrec(const void* a, const void* b, const void* y0, void* y,
-                      int rows, int n, int is_complex, int a_per_step,
+                      int rows, int n, int kind, int a_per_step,
                       void* stream) {
   return dispatch<false>(a, b, y0, nullptr, y, nullptr, nullptr, rows, n,
-                         is_complex, a_per_step, stream);
+                         kind, a_per_step, stream);
 }
 
 // The adjoint of `linrec` for the output's gradient g [rows, n]: writes db
@@ -677,9 +710,9 @@ extern "C" int linrec(const void* a, const void* b, const void* y0, void* y,
 // output y; dy0 [rows] when not NULL.  y0 is the forward's (NULL: 0).
 extern "C" int linrec_bwd(const void* a, const void* g, const void* y0,
                           const void* y, void* db, void* da, void* dy0,
-                          int rows, int n, int is_complex, int a_per_step,
+                          int rows, int n, int kind, int a_per_step,
                           void* stream) {
   if (da != nullptr && y == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch<true>(a, g, y0, da ? y : nullptr, db, da, dy0, rows, n,
-                        is_complex, a_per_step, stream);
+                        kind, a_per_step, stream);
 }

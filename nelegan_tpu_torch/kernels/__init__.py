@@ -53,12 +53,12 @@ KERNELS: Dict[str, Kernel] = {
     # x, a, y, rows, n, stream
     "gammatone_cascade": Kernel("cascade.cu", "gammatone_cascade_f32",
                                 (_P, _P, _P, _I, _I, _P)),
-    # a, b, y0, y, rows, n, is_complex, a_per_step, stream: the first-order
-    # recurrence y[n] = a[n] y[n-1] + b[n] of ops/iir.py; a NULL y0 starts
-    # every row from 0.
+    # a, b, y0, y, rows, n, kind (0 float32, 1 complex64, 2 float64),
+    # a_per_step, stream: the first-order recurrence y[n] = a[n] y[n-1] +
+    # b[n] of ops/iir.py; a NULL y0 starts every row from 0.
     "linrec": Kernel("linrec.cu", "linrec",
                      (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    # a, g, y0, y, db, da, dy0, rows, n, is_complex, a_per_step, stream: its
+    # a, g, y0, y, db, da, dy0, rows, n, kind, a_per_step, stream: its
     # adjoint for the output's gradient g (NULL da or dy0: not wanted; da
     # needs the forward's y).
     "linrec_bwd": Kernel("linrec.cu", "linrec_bwd",

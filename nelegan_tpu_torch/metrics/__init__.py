@@ -1,19 +1,21 @@
-"""The intelligibility metrics scored on the card: SIIB, HASPI v2, ESTOI.
+"""The five metrics scored on the card: SIIB, HASPI v2, ESTOI, PESQ, ViSQOL.
 
 Counterpart of `nelegan_tpu/metrics/__init__.py`.  `score_pair` scores one
 (clean, noise, enhanced) triple, `score_batch` a list of them, and
 `score_corpus` a corpus in length buckets, `vmap_chunk` utterances to a
 batch, each row with its `n_valid`.  Wrapper semantics follow the
-reference's intel.py: the intelligibility metrics compare clean speech
-with enhanced speech plus noise (the near-end listener hears both), and
+reference's intel.py: the intelligibility metrics (SIIB, HASPI, ESTOI)
+compare clean speech with enhanced speech plus noise (the near-end listener
+hears both), the quality metrics (PESQ, ViSQOL) clean with enhanced, and
 ``norm=True`` applies the logistic calibrations (intel.py:102-160) of a
 `MetricCalibration`.
 
-PESQ and ViSQOL, the quality metrics, are not ported yet; asking for them
-raises and names the ROADMAP item that ports them, as do the reference
-package's `CleanSidePool`, `enhanced_keys` and `mesh`.  What the reference
-package does only for its remote-device tunnel (PCM16 upload packing,
-timing probes, power-of-two row padding) changes no score and is not here.
+`score_corpus` caches clean-side halves in a plain mapping (per chunk
+composition) or a `CleanSidePool` (per utterance, with the raw clean and
+noise rows and, through `enhanced_keys`, PCM16 enhanced rows).  Scoring
+over a mesh raises and names the ROADMAP item that ports it.  What the
+reference package does only for its remote-device tunnel (timing probes,
+power-of-two row padding) changes no score and is not here.
 """
 from __future__ import annotations
 
@@ -32,15 +34,24 @@ from nelegan_tpu_torch.metrics.estoi import (
 from nelegan_tpu_torch.metrics.haspi import (  # noqa: F401
     haspi_v1, haspi_v1_24k, haspi_v2, haspi_v2_24k, haspi_v2_clean_24k,
     haspi_v2_from_clean_24k, hasqi_v2, hasqi_v2_24k, resample_to_24k)
+from nelegan_tpu_torch.metrics.pesq import (  # noqa: F401
+    mos_lqo_wb, pesq_p862, pesq_p862_16k)
 from nelegan_tpu_torch.metrics.siib import (
     HOP as SIIB_HOP, _vad_mask, siib, siib_gauss_16k, siib_gauss_16k_with_klt,
     siib_klt_16k)
+from nelegan_tpu_torch.metrics.visqol import (  # noqa: F401
+    visqol_speech, visqol_speech_16k)
+
+# The reference package's call-site names for the quality metrics (the
+# reference scores them with pypesq and the ViSQOL binary).
+pesq_proxy = pesq_p862
+pesq_proxy_16k = pesq_p862_16k
+visqol_proxy = visqol_speech
+visqol_proxy_16k = visqol_speech_16k
 
 ALL_METRICS = ("siib", "haspi", "estoi", "pesq", "visqol")
-PORTED_METRICS = ("siib", "haspi", "estoi")
-ROADMAP_ITEM = ("ROADMAP.md, Open items, section 1, item 1: PESQ "
-                "(metrics/pesq.py), then ViSQOL (metrics/visqol.py), then "
-                "metrics/clean_pool.py")
+ROADMAP_ITEM = ("ROADMAP.md, Open items, section 1, item 4: data "
+                "parallelism across GPUs with torch.distributed")
 # the longest tiled SIIB row (~131 s): one mostly silent utterance would
 # otherwise size every row of its chunk
 MAX_TILED = 2_097_152
@@ -53,15 +64,13 @@ def not_ported(what: str) -> NotImplementedError:
 
 def _check_metrics(metrics: Sequence[str]) -> None:
     for m in metrics:
-        if m in ("pesq", "visqol"):
-            raise not_ported(f"metric {m!r}")
         if m not in ALL_METRICS:
             raise ValueError(f"unknown metric {m}")
 
 
 def score_pair_async(clean, noise, enhanced, fs: int = 16000,
                      norm: bool = True,
-                     metrics: Sequence[str] = PORTED_METRICS, device=None,
+                     metrics: Sequence[str] = ALL_METRICS, device=None,
                      calib: MetricCalibration = MetricCalibration()
                      ) -> Dict[str, Any]:
     """Like `score_pair`, but returns 0-d tensors on the device, not
@@ -71,7 +80,8 @@ def score_pair_async(clean, noise, enhanced, fs: int = 16000,
     dev = resolve_device(device)
     n = min(len(clean), len(enhanced), len(noise))
     clean = np.asarray(clean)[:n]
-    noisy_enh = np.asarray(enhanced)[:n] + np.asarray(noise)[:n]
+    enh = np.asarray(enhanced)[:n]
+    noisy_enh = enh + np.asarray(noise)[:n]
     mappers = make_mappers(calib)
 
     def on_dev(a):
@@ -83,25 +93,30 @@ def score_pair_async(clean, noise, enhanced, fs: int = 16000,
             raw = siib(clean, noisy_enh, fs, device=dev)
         elif m == "haspi":
             raw = haspi_v2(on_dev(clean), fs, on_dev(noisy_enh), fs)[0]
-        else:
+        elif m == "estoi":
             raw = estoi(on_dev(clean), on_dev(noisy_enh), fs)
+        elif m == "pesq":
+            raw = pesq_proxy(on_dev(clean), on_dev(enh), fs)
+        else:
+            raw = visqol_proxy(on_dev(clean), on_dev(enh), fs)
         out[m] = mappers[m](raw) if norm else raw
     return out
 
 
 def score_pair(clean, noise, enhanced, fs: int = 16000, norm: bool = True,
-               metrics: Sequence[str] = PORTED_METRICS, device=None,
+               metrics: Sequence[str] = ALL_METRICS, device=None,
                calib: MetricCalibration = MetricCalibration()
                ) -> Dict[str, float]:
     """The requested metrics of one utterance triple (reference read_STOI,
-    read_SIIB, read_HASPI, audio_util.py:120-228): trimmed to the shortest
-    signal, the intelligibility metrics hear enhanced + noise."""
+    read_SIIB, read_HASPI, read_PESQ, audio_util.py:120-228): trimmed to the
+    shortest signal, the intelligibility metrics hear enhanced + noise, the
+    quality metrics enhanced alone."""
     return {k: float(v) for k, v in score_pair_async(
         clean, noise, enhanced, fs, norm, metrics, device, calib).items()}
 
 
 def score_batch(clean_list, noise_list, enhanced_list, fs: int = 16000,
-                norm: bool = True, metrics: Sequence[str] = PORTED_METRICS,
+                norm: bool = True, metrics: Sequence[str] = ALL_METRICS,
                 device=None, calib: MetricCalibration = MetricCalibration()):
     """Score a list of triples: every metric is launched for every triple,
     and the scores come to the host in one copy at the end."""
@@ -144,9 +159,10 @@ def siib_tiled_length(clean: np.ndarray, fs: int = 16000) -> int:
 
 
 def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
-                 norm: bool = True, metrics: Sequence[str] = PORTED_METRICS,
+                 norm: bool = True, metrics: Sequence[str] = ALL_METRICS,
                  bucket_quant: int = 16384, vmap_chunk: int = 8, mesh=None,
                  clean_cache=None, clean_keys: Sequence = None,
+                 pool_raw_signals: bool = True,
                  enhanced_keys: Sequence = None, device=None,
                  calib: MetricCalibration = MetricCalibration()):
     """Bucketed corpus scoring.
@@ -156,20 +172,32 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
     with its `n_valid`, so a padded row scores as its trimmed signal.  SIIB
     tiles each row on the device to its tiled length (the tile-to-20-s
     rule, decided on the host) inside a buffer of the chunk's tiled bucket.
+    When every signal round-trips PCM16 exactly (16-bit wav files), the
+    rows go to the device as int16 and are decoded there, to the same
+    values.
 
-    `clean_cache` (a plain mapping) with `clean_keys` (one hashable key per
-    utterance) keeps the clean-side halves of ESTOI, HASPI v2 and SIIB (its
-    KLT basis) across calls, on the device, keyed as the reference package
-    keys them: ``(name, blen) + ((clean_key, n_valid), ...)`` per chunk,
-    and the SIIB tiling decision as ``("siib-vad", clean_key, n_valid)``.
+    `clean_cache` with `clean_keys` (one hashable key per utterance, naming
+    its (clean, noise) pair) keeps the clean-side halves of ESTOI, HASPI v2
+    and SIIB (its KLT basis) across calls, on the device, in one of two
+    forms:
+      * a plain mapping (e.g. `utils.lru.LRUCache`), per chunk composition:
+        ``(name, blen) + ((clean_key, n_valid), ...)``, and the SIIB tiling
+        decision as ``("siib-vad", clean_key, n_valid)``;
+      * a `metrics.clean_pool.CleanSidePool`, per utterance, so that hits
+        survive reshuffled chunks.  With `pool_raw_signals` the pool also
+        keeps the raw clean and noise rows ("raw-ref", "raw-noz"), so that
+        a repeated call uploads only the enhanced rows; with
+        `enhanced_keys` (one key per utterance naming the enhanced signal's
+        content, e.g. its file) and PCM16 signals it keeps the enhanced
+        rows too ("raw-enh", int16), masked to `n_valid` on the device.  The
+        SIIB tiling decisions go to its `chunk_cache`.
     """
     _check_metrics(metrics)
     if mesh is not None:
         raise not_ported("score_corpus over a mesh (torch.distributed)")
-    if clean_cache is not None and hasattr(clean_cache, "ensure"):
-        raise not_ported("a CleanSidePool clean_cache")
-    if enhanced_keys is not None:
-        raise not_ported("score_corpus's enhanced_keys")
+    pool = clean_cache if hasattr(clean_cache, "ensure") else None
+    if pool is not None and clean_keys is None:
+        raise ValueError("a CleanSidePool clean_cache needs clean_keys")
     assert fs == 16000
     dev = resolve_device(device)
     n_utts = len(clean_list)
@@ -178,8 +206,16 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
     dtype = np.result_type(np.float32, *(np.asarray(s).dtype for lst in
                                          (clean_list, noise_list,
                                           enhanced_list) for s in lst))
+    tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
     results = [dict() for _ in range(n_utts)]
     mappers = make_mappers_np(calib)
+    # one decision for the whole call: int16 rows only when every signal
+    # is a PCM16 round trip
+    pcm16_ok = all(_pcm16_exact(s[:m]) for lst in
+                   (clean_list, noise_list, enhanced_list)
+                   for s, m in zip(lst, lens))
+    # the mapping that holds host-side values (the SIIB tiling decision)
+    host_cache = pool.chunk_cache if pool is not None else clean_cache
 
     buckets: Dict[int, list] = {}
     for i, ln in enumerate(lens):
@@ -195,24 +231,53 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
     pending = []
     for blen, idxs in chunked:
         nv_h = np.array([lens[i] for i in idxs], np.int64)
-
-        def pack(src_list):
-            buf = np.zeros((len(idxs), blen), dtype)
-            for j, i in enumerate(idxs):
-                buf[j, :lens[i]] = src_list[i][:lens[i]]
-            return torch.as_tensor(buf, device=dev)
-
-        ref, noz, enh = (pack(lst) for lst in
-                         (clean_list, noise_list, enhanced_list))
-        ne = noz + enh
         nv = torch.as_tensor(nv_h, device=dev)
-        key_tuple = None
+        row_keys = key_tuple = None
         if clean_cache is not None and clean_keys is not None:
             row_keys = [(clean_keys[i], int(nv_h[j]))
                         for j, i in enumerate(idxs)]
             key_tuple = (blen,) + tuple(row_keys)
 
-        def cached(name, compute):
+        def pack_raw(src_list):
+            """[rows, blen] on the device: int16 PCM when pcm16_ok."""
+            buf = np.zeros((len(idxs), blen),
+                           np.int16 if pcm16_ok else dtype)
+            for j, i in enumerate(idxs):
+                s = np.asarray(src_list[i][:lens[i]])
+                buf[j, :lens[i]] = ((s.astype(np.float32) * 32768.0).astype(
+                    np.int16) if pcm16_ok else s)
+            return torch.as_tensor(buf, device=dev)
+
+        def decode(a):
+            return a.to(tdtype) / 32768.0 if a.dtype == torch.int16 else a
+
+        def pack(src_list):
+            return decode(pack_raw(src_list))
+
+        if pool is not None and enhanced_keys is not None and pcm16_ok:
+            # device-resident enhanced rows, keyed by content (no n_valid
+            # in the key): the mask to n_valid gives the zero-padded pack
+            enh_rows = pool.ensure(("raw-enh", blen),
+                                   [(enhanced_keys[i],) for i in idxs],
+                                   lambda: pack_raw(enhanced_list))
+            enh = decode(enh_rows) * (
+                torch.arange(blen, device=dev)[None, :]
+                < nv[:, None]).to(tdtype)
+        else:
+            enh = pack(enhanced_list)
+        if pool is not None and pool_raw_signals:
+            ref = pool.ensure(("raw-ref", blen), row_keys,
+                              lambda: pack(clean_list))
+            noz = pool.ensure(("raw-noz", blen), row_keys,
+                              lambda: pack(noise_list))
+        else:
+            ref, noz = pack(clean_list), pack(noise_list)
+        ne = noz + enh
+
+        def cached(name, shape_sig, compute):
+            """A clean-side entry through the active cache form."""
+            if pool is not None:
+                return pool.ensure((name,) + shape_sig, row_keys, compute)
             k = (name,) + key_tuple
             v = clean_cache.get(k)
             if v is None:
@@ -227,7 +292,7 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
                 out["estoi"] = estoi_10k(resample_poly(ref, 5, 8), ne10,
                                          _nv10(nv))
             else:
-                ec = cached("estoi-clean", lambda: estoi_clean_10k(
+                ec = cached("estoi-clean", (blen,), lambda: estoi_clean_10k(
                     resample_poly(ref, 5, 8), _nv10(nv)))
                 out["estoi"] = estoi_from_clean_10k(ne10, ec, _nv10(nv))
         if "haspi" in metrics:
@@ -236,21 +301,25 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
                 out["haspi"] = haspi_v2_24k(resample_to_24k(ref, 16000), ne24,
                                             n_valid=_nv24(nv))[0]
             else:
-                cc = cached("haspi-clean", lambda: haspi_v2_clean_24k(
+                cc = cached("haspi-clean", (blen,), lambda: haspi_v2_clean_24k(
                     resample_to_24k(ref, 16000), n_valid=_nv24(nv)))
                 out["haspi"] = haspi_v2_from_clean_24k(ne24, cc,
                                                        n_valid=_nv24(nv))[0]
+        if "pesq" in metrics:
+            out["pesq"] = pesq_proxy_16k(ref, enh, nv)
+        if "visqol" in metrics:
+            out["visqol"] = visqol_proxy_16k(ref, enh, nv)
         if "siib" in metrics:
             sv_h = np.zeros(len(idxs), np.int64)
             for j, i in enumerate(idxs):
-                ck = (None if key_tuple is None
-                      else ("siib-vad",) + key_tuple[1 + j])
-                svj = clean_cache.get(ck) if ck is not None else None
+                ck = (None if row_keys is None
+                      else ("siib-vad",) + row_keys[j])
+                svj = host_cache.get(ck) if ck is not None else None
                 if svj is None:
                     svj = siib_tiled_length(np.asarray(
                         clean_list[i][:nv_h[j]]), fs)
                     if ck is not None:
-                        clean_cache[ck] = svj
+                        host_cache[ck] = svj
                 sv_h[j] = svj
             sb = -(-int(sv_h.max()) // bucket_quant) * bucket_quant
             sv = torch.as_tensor(sv_h, device=dev)
@@ -258,7 +327,7 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
             if key_tuple is None:
                 out["siib"] = siib_gauss_16k(ref_t, ne_t, sv)
             else:
-                u = cached("siib-klt", lambda: siib_klt_16k(ref_t, sv))
+                u = cached("siib-klt", (), lambda: siib_klt_16k(ref_t, sv))
                 out["siib"] = siib_gauss_16k_with_klt(ref_t, ne_t, sv, u)
         pending.append((idxs, out))
 
@@ -278,3 +347,12 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
                     raw = float(chunk[k, j])
                     results[i][m] = float(mappers[m](raw)) if norm else raw
     return results
+
+
+def _pcm16_exact(x) -> bool:
+    """True iff float32(x) * 32768 is integral and in int16 range, i.e.
+    int16 rows decoded on the device reproduce x bit for bit."""
+    s = np.asarray(x, np.float32) * np.float32(32768.0)
+    if s.size == 0:
+        return True
+    return bool(((s >= -32768) & (s <= 32767) & (s == np.round(s))).all())

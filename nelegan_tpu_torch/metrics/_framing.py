@@ -2,10 +2,13 @@
 pystoi/pysiib convention: frames start at 0, hop, ... while start <
 n - framelen; counterpart of `nelegan_tpu/metrics/_framing.py`), and the
 leading batch dimension that stands in for the reference package's
-`vmap`."""
+`vmap`; host arrays to the device."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from nelegan_tpu_torch.device import resolve_device
 
 
 def frame_exclusive(x: torch.Tensor, framelen: int, hop: int
@@ -32,3 +35,11 @@ def as_rows(x: torch.Tensor, n_valid):
 def const(a, like: torch.Tensor) -> torch.Tensor:
     """A host constant in `like`'s dtype on its device."""
     return torch.as_tensor(a, dtype=like.dtype, device=like.device)
+
+
+def on_device(x, device) -> torch.Tensor:
+    """A tensor stays where it is; a host array goes to `device` (None:
+    CUDA)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))

@@ -315,7 +315,8 @@ def spect_diff(xsl: torch.Tensor, ysl: torch.Tensor):
 def env_filt_one(db: torch.Tensor, fcut: float = 320.0, fsub: float = 2560.0,
                  fsamp: int = FSAMP) -> torch.Tensor:
     """One signal's half of ebm_EnvFilt: [..., nchan, n] -> [..., nsub,
-    nchan] (per signal, so the clean side can be cached)."""
+    nchan] (per signal, so the clean side can be cached), dense, so that a
+    cached copy has its layout."""
     tfilt = 0.7 * 1000.0 / fcut
     nfilt = round(0.001 * tfilt * fsamp)
     nhalf = nfilt // 2
@@ -326,7 +327,7 @@ def env_filt_one(db: torch.Tensor, fcut: float = 320.0, fsub: float = 2560.0,
     # this is the correlation with pad_lo = nfilt-1-nhalf
     env = _corr_time(db, benv, nfilt - 1 - nhalf, nhalf)
     space = int(fsamp // fsub)
-    return env[..., ::space].transpose(-1, -2)
+    return env[..., ::space].transpose(-1, -2).contiguous()
 
 
 def env_filt(xdb: torch.Tensor, ydb: torch.Tensor, fcut: float = 320.0,

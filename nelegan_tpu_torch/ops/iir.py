@@ -7,11 +7,12 @@ associative scan, so each of them here is one call of `linrec`:
 
     y[n] = a[n] * y[n-1] + b[n]      along each row of [R, N], y[-1] = y0
 
-A CUDA tensor launches the hand-written kernel `csrc/linrec.cu` (float32 or
-complex64, contiguous) or raises; a CPU tensor takes `linrec_plain`, a loop
-over N vectorised over rows.  `linrec` is a `torch.autograd.Function` on
-both: its backward is the same recurrence from each row's end, the kernel's
-`linrec_bwd` launch on the card and `linrec_backward_plain` on the CPU.
+A CUDA tensor launches the hand-written kernel `csrc/linrec.cu` (float32,
+float64 or complex64, contiguous) or raises; a CPU tensor takes
+`linrec_plain`, a loop over N vectorised over rows.  `linrec` is a
+`torch.autograd.Function` on both: its backward is the same recurrence
+from each row's end, the kernel's `linrec_bwd` launch on the card and
+`linrec_backward_plain` on the CPU.
 Higher orders decompose as in the reference package: the biquad's
 denominator is its complex-conjugate pole pair, two complex one-poles; a
 constant 2x2 system is diagonalised into two complex one-poles.
@@ -30,7 +31,8 @@ import torch
 
 from nelegan_tpu_torch import kernels
 
-_KERNEL_DTYPES = (torch.float32, torch.complex64)
+# the kernel's element types, by the code its `kind` argument takes
+_KERNEL_KINDS = {torch.float32: 0, torch.complex64: 1, torch.float64: 2}
 
 
 def linrec_plain(a: torch.Tensor, b: torch.Tensor,
@@ -97,9 +99,9 @@ def _check_kernel_inputs(tensors, name: str) -> None:
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: unsupported devices "
                          f"{[str(t.device) for t in tensors]}")
-    if dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{name} kernel takes float32 or complex64, got "
-                        f"{dtype}")
+    if dtype not in _KERNEL_KINDS:
+        raise TypeError(f"{name} kernel takes float32, float64 or complex64, "
+                        f"got {dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
 
@@ -111,8 +113,8 @@ def _ptr(t: torch.Tensor | None):
 def _linrec_kernel(a, b, y0):
     y = torch.empty_like(b)
     kernels.launch("linrec", a.data_ptr(), b.data_ptr(), _ptr(y0),
-                   y.data_ptr(), b.shape[0], b.shape[1], int(b.is_complex()),
-                   int(a.dim() == 2), _stream(b))
+                   y.data_ptr(), b.shape[0], b.shape[1],
+                   _KERNEL_KINDS[b.dtype], int(a.dim() == 2), _stream(b))
     return y
 
 
@@ -144,8 +146,8 @@ def linrec_backward(a: torch.Tensor, g: torch.Tensor, y: torch.Tensor,
     dy0 = torch.empty_like(y0) if need_y0 else None
     kernels.launch("linrec_bwd", a.data_ptr(), g.data_ptr(), _ptr(y0),
                    y.data_ptr() if need_a else None, db.data_ptr(), _ptr(da),
-                   _ptr(dy0), g.shape[0], g.shape[1], int(g.is_complex()),
-                   int(a.dim() == 2), _stream(g))
+                   _ptr(dy0), g.shape[0], g.shape[1],
+                   _KERNEL_KINDS[g.dtype], int(a.dim() == 2), _stream(g))
     return db, da, dy0
 
 
@@ -178,8 +180,8 @@ def linrec(a: torch.Tensor, b: torch.Tensor,
     y0 is None); `a` is [R, N] (per step) or [R] (per row), of b's dtype.
 
     A CPU tensor takes `linrec_plain`.  A CUDA tensor launches the `linrec`
-    kernel (float32 or complex64, contiguous) or raises.  Differentiable on
-    both (`linrec_backward`)."""
+    kernel (float32, float64 or complex64, contiguous) or raises.
+    Differentiable on both (`linrec_backward`)."""
     _check_shapes(a, b, y0)
     tensors = (a, b) if y0 is None else (a, b, y0)
     if any(t.dtype != b.dtype for t in tensors):

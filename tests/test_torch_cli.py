@@ -10,13 +10,16 @@ import scipy.io.wavfile as wavfile
 import torch
 from flax import serialization
 
+from nelegan_tpu.cli import collect_norm as jcollect
+from nelegan_tpu.cli import eval_reverb as jeval
 from nelegan_tpu.cli import export_torch as jexport
 from nelegan_tpu.cli import infer as jinfer
 from nelegan_tpu.config import Config as JaxConfig
 from nelegan_tpu.config import config_to_dict as jax_config_to_dict
 from nelegan_tpu.train import gan as jgan
 from nelegan_tpu.train.checkpoint import save_checkpoint as jax_save
-from nelegan_tpu_torch.cli import export_torch, infer, serve, stream
+from nelegan_tpu_torch.cli import (collect_norm, eval_reverb, export_torch,
+                                   infer, serve, stream)
 from nelegan_tpu_torch.config import Config, ModelConfig
 from nelegan_tpu_torch.models.convert import (reference_state_dicts,
                                               train_state_from_jax)
@@ -164,9 +167,19 @@ def test_infer_cli_matches_jax(jax_ckpt, corpus, tmp_path, capsys):
         n_diff += int((d > 0).sum())
         n_total += d.size
     print(f"PCM16 samples differing from the JAX CLI: {n_diff} of {n_total}")
-    for m in ("pesq", "visqol", "siib,pesq"):
-        with pytest.raises(SystemExit, match="not ported.*ROADMAP.md"):
-            infer.main(args[:-1] + [m, "--output", str(tmp_path / "x")])
+    # PESQ and ViSQOL, refused before they were ported, now score; the
+    # default is all five metrics, as in the JAX CLI
+    assert infer.build_parser().parse_args(args[:4]).metrics == (
+        jinfer.build_parser().parse_args(args[:4]).metrics)
+    res = infer.main(args[:-1] + ["pesq,visqol", "--subsets", "utt0#",
+                                  "--output", str(tmp_path / "x"),
+                                  "--device", "cpu"])
+    means = res["scores"]["utt0#"]["means"]
+    assert set(means) == {"pesq", "visqol"}
+    assert all(np.isfinite(v) for v in means.values())
+    with pytest.raises(SystemExit, match="unknown metric"):
+        infer.main(args[:-1] + ["pesq,bogus", "--output", str(tmp_path / "y"),
+                                "--device", "cpu"])
 
 
 def _printed_means(text: str, subset: str) -> dict:
@@ -177,27 +190,90 @@ def _printed_means(text: str, subset: str) -> dict:
 
 
 def test_infer_cli_scores_like_jax(jax_ckpt, corpus, tmp_path, capsys):
-    """`--metrics siib,haspi,estoi` prints the JAX CLI's per-subset means.
-    The subset is one utterance (the JAX package compiles each metric once
-    per distinct length); both CLIs score the float32 wavs they wrote, and
-    print three decimals, so the bar is the print's last digit, 1e-3."""
+    """`--metrics siib,haspi,estoi,pesq,visqol` prints the JAX CLI's
+    per-subset means.  The subset is one utterance (the JAX package compiles
+    each metric once per distinct length); both CLIs score the float32 wavs
+    they wrote, and print three decimals, so the bar is the print's last
+    digit, 1e-3."""
     path, _ = jax_ckpt
     subset = "utt1#"
     args = ["--test-clean", str(corpus / "Clean"), "--test-noise",
             str(corpus / "Noise"), "--checkpoint", path, "--batch-size", "4",
-            "--metrics", "siib,haspi,estoi", "--subsets", subset]
+            "--metrics", "siib,haspi,estoi,pesq,visqol", "--subsets", subset]
     jinfer.main(args + ["--output", str(tmp_path / "jax")])
     want = _printed_means(capsys.readouterr().out, subset)
     res = infer.main(args + ["--output", str(tmp_path / "port"),
                              "--device", "cpu"])
     got = _printed_means(capsys.readouterr().out, subset)
-    assert want.keys() == got.keys() == {"siib", "haspi", "estoi"}
+    assert want.keys() == got.keys() == {"siib", "haspi", "estoi", "pesq",
+                                         "visqol"}
     for m in want:
         assert abs(got[m] - want[m]) <= 1e-3 + 1e-9, (m, got, want)
     scored = res["scores"][subset]
     assert scored["names"] == ["utt1#Cafeteria#1@1.wav"]
     for m in want:
         assert abs(round(scored["means"][m], 3) - got[m]) < 1e-9
+
+
+def _printed_values(text: str, metric: str) -> list:
+    tag = f"{metric.upper()} is "
+    return [float(part.split(tag)[1]) for line in text.splitlines()
+            for part in line.split(",") if tag in part]
+
+
+def test_eval_reverb_cli_matches_jax(jax_ckpt, corpus, tmp_path, capsys):
+    """One utterance without reverb and through a synthetic RIR (a direct
+    path and a decaying tail, tests/test_cli_eval.py's), --metrics estoi:
+    the printed means equal the JAX CLI's to the print's last digit."""
+    path, _ = jax_ckpt
+    rir = np.zeros(2000, np.float32)
+    rir[40] = 1.0
+    rir[200:1200] = 0.2 * np.exp(-np.arange(1000) / 200.0)
+    rir_path = str(tmp_path / "rir.wav")
+    wavfile.write(rir_path, 16000, (rir * 32767).astype(np.int16))
+    args = ["--test-clean", str(corpus / "Clean"), "--test-noise",
+            str(corpus / "Noise"), "--checkpoint", path, "--num-utts", "1",
+            "--batch-size", "1", "--metrics", "estoi", "--rir", "NO_rev",
+            "--rir", rir_path]
+    jeval.main(args)
+    want = _printed_values(capsys.readouterr().out, "estoi")
+    res = eval_reverb.main(args + ["--device", "cpu"])
+    got = _printed_values(capsys.readouterr().out, "estoi")
+    assert len(want) == len(got) == 2 and list(res) == ["NO_rev", rir_path]
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-3 + 1e-9, (got, want)
+
+
+def test_collect_norm_cli_matches_jax(corpus, tmp_path):
+    """One utterance, --metrics estoi, with an RIR directory (the clean
+    name's #Cafeteria# field names the RIR): the four saved distributions,
+    calibrated and raw, equal the JAX CLI's within 1e-5 (float32 signals,
+    each package's FFT convolution for the reverberation)."""
+    enh, rirs = tmp_path / "Enh", tmp_path / "RIR"
+    enh.mkdir()
+    rirs.mkdir()
+    for name in os.listdir(corpus / "Clean"):
+        _, x = wavfile.read(corpus / "Clean" / name)
+        wavfile.write(enh / name, 16000, (0.8 * x).astype(np.int16))
+    rir = np.zeros(1200, np.float32)
+    rir[30] = 1.0
+    rir[100:1100] = 0.1 * np.exp(-np.arange(1000) / 150.0)
+    wavfile.write(rirs / "Cafeteria.wav", 16000,
+                  (rir * 32767).astype(np.int16))
+    for raw in ([], ["--raw"]):
+        args = ["--clean", str(corpus / "Clean"), "--noise",
+                str(corpus / "Noise"), "--enhanced", str(enh), "--rir-dir",
+                str(rirs), "--num", "1", "--metrics", "estoi"] + raw
+        jcollect.main(args + ["--out", str(tmp_path / "jax")])
+        acc = collect_norm.main(args + ["--out", str(tmp_path / "port"),
+                                        "--device", "cpu"])
+        conds = ("before", "after", "rev_before", "rev_after")
+        assert set(acc) == {("estoi", c) for c in conds}
+        for c in conds:
+            want = np.load(tmp_path / "jax" / f"estoi_{c}.npy")
+            got = np.load(tmp_path / "port" / f"estoi_{c}.npy")
+            assert got.shape == want.shape == (1,)
+            np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=c)
 
 
 def test_stream_cli_runs(jax_ckpt, corpus, tmp_path):

@@ -60,7 +60,13 @@ def test_scoring_modules_are_covered():
             "nelegan_tpu_torch.metrics.haspi.ear_model",
             "nelegan_tpu_torch.metrics.haspi.chains",
             "nelegan_tpu_torch.ops.iir",
-            "nelegan_tpu_torch.dsp.resample"} <= mods
+            "nelegan_tpu_torch.dsp.resample",
+            "nelegan_tpu_torch.metrics.pesq",
+            "nelegan_tpu_torch.metrics.visqol",
+            "nelegan_tpu_torch.metrics.clean_pool",
+            "nelegan_tpu_torch.utils.lru",
+            "nelegan_tpu_torch.cli.eval_reverb",
+            "nelegan_tpu_torch.cli.collect_norm"} <= mods
 
 
 def test_no_port_source_imports_jax_or_reference_package():
@@ -94,7 +100,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from nelegan_tpu_torch import metrics, pipeline, streaming
-    from nelegan_tpu_torch.cli import export_torch, infer, serve, stream
+    from nelegan_tpu_torch.cli import (collect_norm, eval_reverb,
+                                       export_torch, infer, serve, stream)
     from nelegan_tpu_torch.dsp.imcra import imcra_init
     from nelegan_tpu_torch.metrics.siib import siib
     from nelegan_tpu_torch.models.generator import Generator
@@ -120,6 +127,14 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: metrics.score_corpus([x], [x], [x]),
         lambda: siib(x, x),
         lambda: imcra_init(3, torch.float32),
+        lambda: metrics.pesq_p862(x, x),
+        lambda: metrics.visqol_speech(x, x),
+        lambda: eval_reverb.main(["--test-clean", str(tmp_path),
+                                  "--test-noise", str(tmp_path),
+                                  "--checkpoint", "absent"]),
+        lambda: collect_norm.main(["--clean", str(tmp_path), "--noise",
+                                   str(tmp_path), "--enhanced",
+                                   str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,6 +1,7 @@
 """The port's metric slice (resampling, ESTOI, SIIB, calibration, scoring)
 against the JAX package's on seeded 1-s triples, float64 on the CPU, and
-the port's float32 against float64; the config and device repairs."""
+the port's float32 against float64; the config and device repairs; the
+five metrics through score_pair and score_corpus."""
 import dataclasses
 import importlib
 
@@ -14,6 +15,7 @@ from nelegan_tpu.config import Config as JaxConfig
 from nelegan_tpu.config import MetricCalibration as JaxCalibration
 from nelegan_tpu.config import config_to_dict as jax_config_to_dict
 from nelegan_tpu.dsp.resample import resample_poly as jax_resample_poly
+from nelegan_tpu.metrics import _metric_programs as jax_metric_programs
 from nelegan_tpu.metrics import score_batch as jax_score_batch
 from nelegan_tpu.metrics.calibrate import make_mappers_np as jax_mappers_np
 from nelegan_tpu_torch import metrics
@@ -21,6 +23,7 @@ from nelegan_tpu_torch.config import MetricCalibration, config_from_dict
 from nelegan_tpu_torch.dsp import imcra
 from nelegan_tpu_torch.dsp.resample import resample_poly
 from nelegan_tpu_torch.metrics import calibrate
+from nelegan_tpu_torch.metrics.clean_pool import CleanSidePool
 
 jestoi = importlib.import_module("nelegan_tpu.metrics.estoi")
 jsiib = importlib.import_module("nelegan_tpu.metrics.siib")
@@ -213,7 +216,8 @@ def test_score_batch_matches_jax(triples, jax_scores):
     against the JAX package's, raw, float64.  The JAX package returns its
     scores as float32 (6e-8 relative), and SIIB's KLT comes from another
     LAPACK routine (JAX_BARS); the calibrated form (norm=True) too."""
-    got = metrics.score_batch(*zip(*triples), norm=False, device="cpu")
+    got = metrics.score_batch(*zip(*triples), norm=False, metrics=METRICS,
+                              device="cpu")
     for g, w in zip(got, jax_scores):
         assert g.keys() == w.keys() == set(METRICS)
         for m in METRICS:
@@ -226,7 +230,7 @@ def test_score_batch_matches_jax(triples, jax_scores):
     # float32 signals: within the float32 bars of the float64 scores
     got32 = metrics.score_batch(*zip(*[tuple(v.astype(np.float32) for v in t)
                                        for t in triples[1:]]),
-                                norm=False, device="cpu")
+                                norm=False, metrics=METRICS, device="cpu")
     for g, w in zip(got32, got[1:]):
         for m in METRICS:
             assert abs(g[m] - w[m]) < F32_BARS[m] * abs(w[m]), (m, g, w)
@@ -240,8 +244,10 @@ def test_score_corpus_matches_score_batch(triples):
     c, n, e = triples[0]
     lens = (16000, 9001)
     trip = [(c[:m], n[:m], e[:m]) for m in lens]
-    exact = metrics.score_batch(*zip(*trip), norm=False, device="cpu")
-    bucketed = metrics.score_corpus(*zip(*trip), norm=False, device="cpu")
+    exact = metrics.score_batch(*zip(*trip), norm=False, metrics=METRICS,
+                                device="cpu")
+    bucketed = metrics.score_corpus(*zip(*trip), norm=False, metrics=METRICS,
+                                    device="cpu")
     for ex, bu in zip(exact, bucketed):
         for m in ("estoi", "haspi"):
             tol = 5e-3 if m == "haspi" else 1e-3
@@ -249,28 +255,73 @@ def test_score_corpus_matches_score_batch(triples):
         assert abs(ex["siib"] - bu["siib"]) < 0.05 * max(ex["siib"], 10.0)
     cache = {}
     keys = ["a", "b"]
-    cold = metrics.score_corpus(*zip(*trip), norm=False, device="cpu",
-                                clean_cache=cache, clean_keys=keys)
+    cold = metrics.score_corpus(*zip(*trip), norm=False, metrics=METRICS,
+                                device="cpu", clean_cache=cache,
+                                clean_keys=keys)
     key = (16384,) + tuple((k, m) for k, m in zip(keys, lens))
     assert {k[0] for k in cache} == {"estoi-clean", "haspi-clean",
                                      "siib-klt", "siib-vad"}
     assert ("estoi-clean",) + key in cache
     assert ("siib-vad", "a", 16000) in cache
-    warm = metrics.score_corpus(*zip(*trip), norm=False, device="cpu",
-                                clean_cache=cache, clean_keys=keys)
+    warm = metrics.score_corpus(*zip(*trip), norm=False, metrics=METRICS,
+                                device="cpu", clean_cache=cache,
+                                clean_keys=keys)
     assert warm == cold
     for w, b in zip(warm, bucketed):
         assert w["estoi"] == b["estoi"] and w["siib"] == b["siib"]
         assert abs(w["haspi"] - b["haspi"]) < 1e-9 * abs(b["haspi"])
 
 
-def test_unported_metrics_and_options_raise():
-    x = np.zeros(4000)
+def test_unported_metrics_and_options_raise(triples):
+    """Scoring over a mesh still raises and names ROADMAP.md.  PESQ and
+    ViSQOL, a CleanSidePool and enhanced_keys, which raised before they
+    were ported, now score: score_pair gives the metric functions' raw
+    values on (clean, enhanced), and the pool and the enhanced keys leave
+    score_corpus's scores as they are."""
+    c, n, e = (x[:8000] for x in triples[0])
+    got = metrics.score_pair(c, n, e, norm=False, metrics=("pesq", "visqol"),
+                             device="cpu")
+    want = {"pesq": metrics.pesq_p862(torch.from_numpy(c),
+                                      torch.from_numpy(e)),
+            "visqol": metrics.visqol_speech(torch.from_numpy(c),
+                                            torch.from_numpy(e))}
+    assert got == {k: float(v) for k, v in want.items()}
+    assert metrics.pesq_proxy is metrics.pesq_p862
+    assert metrics.visqol_proxy_16k is metrics.visqol_speech_16k
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        metrics.score_corpus([c], [n], [e], device="cpu", mesh=object())
+    kw = dict(norm=False, metrics=("estoi", "pesq"), device="cpu")
+    base = metrics.score_corpus([c], [n], [e], **kw)
+    assert metrics.score_corpus([c], [n], [e], enhanced_keys=["x"],
+                                **kw) == base
+    assert metrics.score_corpus([c], [n], [e], clean_keys=["a"],
+                                clean_cache=CleanSidePool(), **kw) == base
+
+
+def test_score_corpus_matches_jax(triples, jax_scores):
+    """score_corpus of all five metrics against the JAX package, float64:
+    the two triples as bucketed rows of their own length against its
+    score_batch (the intelligibility metrics, at JAX_BARS); PESQ and
+    ViSQOL on zero-padded rows of 16000 and 9001 samples against its
+    score_corpus programs on the same rows, within 1e-9."""
+    got = metrics.score_corpus(*zip(*triples), norm=False,
+                               bucket_quant=16000, device="cpu")
+    for g, w in zip(got, jax_scores):
+        assert set(g) == set(metrics.ALL_METRICS)
+        for m in METRICS:
+            bar = max(JAX_BARS[m], 2.0 ** -23)       # float32's rounding
+            assert abs(g[m] - w[m]) < bar * abs(w[m]), (m, g[m], w[m])
+    c, n, e = triples[1]
+    lens = (16000, 9001)
+    ref, enh = np.zeros((2, 16384)), np.zeros((2, 16384))
+    for j, m in enumerate(lens):
+        ref[j, :m], enh[j, :m] = c[:m], e[:m]
+    got = metrics.score_corpus([c[:m] for m in lens], [n[:m] for m in lens],
+                               [e[:m] for m in lens], norm=False,
+                               metrics=("pesq", "visqol"), device="cpu")
+    progs = jax_metric_programs()
     for m in ("pesq", "visqol"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            metrics.score_pair(x, x, x, metrics=(m,), device="cpu")
-    for kw in ({"mesh": object()}, {"enhanced_keys": ["a"]},
-               {"clean_cache": type("Pool", (), {"ensure": None})(),
-                "clean_keys": ["a"]}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            metrics.score_corpus([x], [x], [x], device="cpu", **kw)
+        want = np.asarray(progs[m](jnp.asarray(ref), jnp.asarray(enh),
+                                   jnp.asarray(np.array(lens))))
+        for j in range(2):
+            assert abs(got[j][m] - want[j]) < 1e-9 * abs(want[j]), (m, j)
