@@ -140,20 +140,51 @@ Phases, in order; any failure raises:
      and for all five, cold and warm, by host clock and CUDA events; one
      profile (busy share, top device operations); SIIB's eigh time against
      its warm time;
-  9. one JSON line per phase, one of kernel records (each with its launches
-     on the serving, training, streaming, infer, scoring and gradient paths
-     and in the kernel phase; `launches` is its own path's: serving for
-     IMCRA and the cascade, scoring for linrec, the gradient phase for
-     linrec_bwd), the card line again, and last
+  9. trainer phase (`train/loop.py`, `train/resilience.py`), float32, TF32
+     off, deterministic cuDNN, over PCM16 corpora written under the
+     temporary directory: at full width (Config(), batch 8; 32 training
+     utterances with a pre-enhanced copy at half gain, 8 test ones, in the
+     three infer buckets; 16 sampled and 8 validated an epoch; all five
+     metrics) three epochs, launch counts zeroed just before each epoch and
+     read just after (IMCRA once per featurized batch, linrec once per PESQ
+     chunk, the cascade and linrec_bwd never), every scoring lookup of the
+     enhanced rows the loop parked in the pool a hit; exact resume: a second
+     run of epochs 1-2, then a fresh Trainer resumes from a copy of its
+     checkpoints and runs epoch 3, bit for bit against that run with its
+     caches emptied before epoch 3 (state with Adam moments and u/v,
+     replay, history, log.txt), and within CACHE_BAR (scores) and
+     F32_UPDATE_BAR (state) of the straight run with warm caches; a fourth
+     epoch traced (trace_context) for the device-busy share of g_train and
+     d_train.  At a small config (hidden 32, 2 blocks, batch 4, 8 training
+     utterances, ESTOI and PESQ): run_with_recovery with a fault injected
+     in epoch 2 against a straight run emptied before epoch 2, bit for bit;
+     the card against the CPU from the same initial state, the card's D
+     trained on the CPU's scores (names and replay paths identical, the
+     card's own scores within SCORE_BARS, G's epoch loss within
+     F32_LOSS_BAR, the D heads' epoch losses and the state within
+     F32_UPDATE_BAR), beside the CPU against itself from an initial state
+     one float32 ulp away.  At the paper's epoch size (300 sampled of 300
+     training utterances, 480 validated), two epochs, cold and warm, with
+     their launch counts.  Per epoch: phase seconds, G and D steps, pool
+     hits, misses and bytes, training utterances/s;
+ 10. one JSON line per phase, one of kernel records (each with its launches
+     on the serving, training, streaming, infer, scoring, gradient and
+     trainer paths and in the kernel phase; `launches` is its own path's:
+     serving for IMCRA and the cascade, scoring for linrec, the gradient
+     phase for linrec_bwd), the card line again, and last
      `{"ok": true, "device": ...}`.
 """
 from __future__ import annotations
 
+import collections
 import copy
+import dataclasses
 import functools
 import itertools
 import json
 import multiprocessing
+import os
+import shutil
 import subprocess
 import tempfile
 import threading
@@ -182,6 +213,9 @@ from nelegan_tpu_torch.metrics.siib import (_capacity, _klt, _stack_pair,
 from nelegan_tpu_torch.models.generator import Generator
 from nelegan_tpu_torch.ops import cascade, iir
 from nelegan_tpu_torch.train import checkpoint, gan
+from nelegan_tpu_torch.train.loop import Trainer, TrainPaths
+from nelegan_tpu_torch.train.resilience import run_with_recovery
+from nelegan_tpu_torch.utils.profiling import trace_context
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "goldens" / "features.npz"
@@ -283,6 +317,18 @@ PESQ_GRAD_BAR = 5e-5
 # float64 linrec and linrec_bwd against their plain loops in float64 on the
 # card, relative as LINREC_BAR: float64 round-off.
 LINREC_F64_BAR = 1e-12
+# Trainer phase: the loop at full width over TRAINER_TRAIN training and
+# TRAINER_TEST test utterances in INFER_BUCKETS' three buckets, for
+# TRAINER_EPOCHS epochs; its recovery and CPU checks at a small config
+# (hidden 32, 2 blocks, batch 4) over TRAINER_SMALL_TRAIN and
+# TRAINER_SMALL_TEST utterances, scoring TRAINER_SMALL_METRICS; and two
+# epochs at the paper's size, PAPER_SAMPLED of PAPER_SAMPLED training
+# utterances sampled and PAPER_VALID validated an epoch (train_nele.py's
+# num_sampling and validation set).
+TRAINER_TRAIN, TRAINER_TEST, TRAINER_EPOCHS = 32, 8, 3
+TRAINER_SMALL_TRAIN, TRAINER_SMALL_TEST = 8, 4
+TRAINER_SMALL_METRICS = ("estoi", "pesq")
+PAPER_SAMPLED, PAPER_VALID, PAPER_EPOCHS = 300, 480, 2
 # tests/test_pesq.py's burst train with a delayed middle section, for the
 # alignment stages on the card
 BURSTS, BURST_LEN, GAP_LEN, JUMP = 10, 1920, 2880, 1900
@@ -2699,6 +2745,529 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- trainer
+class Tally:
+    """Calls of the functions that launch the trainer's kernels, counted at
+    the call sites the loop goes through (`featurize_batch`: one IMCRA
+    launch each; `score_corpus`'s PESQ: one linrec launch a chunk), and
+    the scoring pool's lookups by signature, caller (score_corpus or the
+    loop), whether the keys are files the loop wrote, hit or miss."""
+
+    def __init__(self):
+        self.calls = collections.Counter()
+        self._undo = []
+        self._scoring = False
+        for module, name, key in ((pipeline, "featurize_batch", "featurize"),
+                                  (gan, "featurize_batch", "featurize"),
+                                  (metrics, "pesq_proxy_16k", "pesq"),
+                                  (metrics, "score_corpus", "score_corpus")):
+            self._wrap(module, name, key)
+
+    def _wrap(self, module, name, key):
+        fn = getattr(module, name)
+
+        def counted(*args, **kw):
+            self.calls[key] += 1
+            scoring, self._scoring = self._scoring, (
+                self._scoring or key == "score_corpus")
+            try:
+                return fn(*args, **kw)
+            finally:
+                self._scoring = scoring
+
+        setattr(module, name, counted)
+        self._undo.append((module, name, fn))
+
+    def watch_pool(self, pool: CleanSidePool) -> None:
+        ensure = pool.ensure
+
+        def counted(sig, keys, compute, mesh=None):
+            hits = pool.hits
+            out = ensure(sig, keys, compute, mesh)
+            written = isinstance(keys[0][0], str) and "@" in keys[0][0]
+            self.calls[(sig[0], "scoring" if self._scoring else "loop",
+                        "written" if written else "corpus",
+                        "hit" if pool.hits > hits else "miss")] += 1
+            return out
+
+        pool.ensure = counted
+
+    def restore(self) -> None:
+        for module, name, fn in reversed(self._undo):
+            setattr(module, name, fn)
+
+
+class SmokeTrainer(Trainer):
+    """The loop as a user runs it, with what the trainer phase reads off
+    it: per epoch the kernels' launches (counted from 0 just before the
+    epoch and read just after), the featurized batches and PESQ chunks
+    (`Tally`), phase seconds, steps and pool telemetry; every D pass's
+    losses; and with `trace_dir` the device-busy share of g_train and
+    d_train (trace_context, torch.profiler)."""
+
+    tally: Tally = None
+
+    def __init__(self, *args, trace_dir=None, targets=None, **kw):
+        super().__init__(*args, **kw)
+        self.trace_dir = trace_dir
+        self.epochs = []
+        self.d_losses = []
+        self.busy = {}
+        # every score this run computed, by (file without the run's
+        # directory, calibrated); with `targets`, another run's such map,
+        # the loop takes those scores in place of its own (both still
+        # computed)
+        self.scored = {}
+        self.targets = targets
+        if self.tally is not None:
+            self.tally.watch_pool(self._clean_side_cache)
+
+    def _score_files(self, index, enhanced_paths, norm, metrics):
+        out = super()._score_files(index, enhanced_paths, norm, metrics)
+        root = run_roots(self)[0]
+        keys = [(p.replace(root, "/"), norm) for p in enhanced_paths]
+        self.scored.update(zip(keys, out))
+        if self.targets is not None:
+            out = [dict(self.targets[k]) for k in keys]
+        return out
+
+    def _traced(self, name, fn, *args):
+        if not self.trace_dir:
+            return fn(*args)
+        with trace_context(f"{self.trace_dir}/{name}") as prof:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_s = sum(_device_us(e) for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA")) / 1e6
+        acc = self.busy.setdefault(name, {"device_s": 0.0, "wall_s": 0.0})
+        acc["device_s"] += dev_s
+        acc["wall_s"] += wall
+        acc["busy_share"] = acc["device_s"] / acc["wall_s"]
+        return out
+
+    def train_generator_epoch(self, sampled):
+        return self._traced("g_train", super().train_generator_epoch,
+                            sampled)
+
+    def train_discriminator_pass(self, entries):
+        out = self._traced("d_train", super().train_discriminator_pass,
+                           entries)
+        self.d_losses += out
+        return out
+
+    def run_epoch(self, epoch):
+        tally = self.tally.calls if self.tally is not None else None
+        before = dict(tally) if tally is not None else {}
+        phases = dict(self.timer._total)
+        steps = (self.state.step_g, self.state.step_d)
+        self.d_losses = []
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        means = super().run_epoch(epoch)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        rec = {"epoch": epoch, "launches": dict(kernels.launches),
+               "epoch_seconds": means["epoch_seconds"],
+               "phases_s": {k: v - phases.get(k, 0.0)
+                            for k, v in self.timer._total.items()
+                            if v != phases.get(k, 0.0)},
+               "g_steps": self.state.step_g - steps[0],
+               "d_steps": self.state.step_d - steps[1],
+               "g_loss": means["g_loss"],
+               "d_loss": [float(np.mean([x[k] for x in self.d_losses]))
+                          for k in (0, 1)],
+               "d_step_losses": self.d_losses,
+               "telemetry": self.telemetry[-1],
+               "traced": bool(self.trace_dir),
+               "utterances_per_s": (self.cfg.train.num_sampling
+                                    / means["epoch_seconds"])}
+        if tally is not None:
+            rec["calls"] = {"_".join(k) if isinstance(k, tuple) else k:
+                            v - before.get(k, 0) for k, v in tally.items()
+                            if v != before.get(k, 0)}
+        self.epochs.append(rec)
+        return means
+
+
+def write_trainer_corpus(root: str, n_train: int, n_test: int,
+                         seed: int) -> None:
+    """Train/{Clean,Noise,MultiEnh} and Test/{Clean,Noise} under root as
+    PCM16 wavs, spread over INFER_BUCKETS' three length buckets, cut from
+    the golden speech and noise at seeded offsets and scales; MultiEnh, the
+    pre-enhanced corpus, is each clean cut at half gain (any PCM16 stand-in
+    serves, as tools/make_synth_corpus.py documents)."""
+    clean, noise = speech_signals()
+    rng = np.random.RandomState(seed)
+    for sub in ("Train/Clean", "Train/Noise", "Train/MultiEnh", "Test/Clean",
+                "Test/Noise"):
+        Path(root, sub).mkdir(parents=True)
+    for split, count in (("Train", n_train), ("Test", n_test)):
+        for k in range(count):
+            lo, hi = INFER_BUCKETS[k % len(INFER_BUCKETS)]
+            n = int(rng.randint(lo, hi + 1))
+            off, s = int(rng.randint(0, clean.size)), float(rng.uniform(0.5,
+                                                                        1.5))
+            name = f"{split[:2].lower()}{k:02d}#Cafeteria#{k}.wav"
+            c = crop(clean, n, off, s)
+            write_wav_pcm16(f"{root}/{split}/Clean/{name}", c)
+            write_wav_pcm16(f"{root}/{split}/Noise/{name}",
+                            crop(noise, n, off + 99, s))
+            if split == "Train":
+                write_wav_pcm16(f"{root}/Train/MultiEnh/{name}", 0.5 * c)
+
+
+def trainer_paths(corpus: str, run: str) -> TrainPaths:
+    return TrainPaths(train_clean=f"{corpus}/Train/Clean",
+                      train_noise=f"{corpus}/Train/Noise",
+                      test_clean=f"{corpus}/Test/Clean",
+                      test_noise=f"{corpus}/Test/Noise",
+                      train_enhanced=f"{corpus}/Train/MultiEnh",
+                      output=f"{run}/output", checkpoints=f"{run}/chkpt",
+                      log_file=f"{run}/log.txt")
+
+
+def run_roots(*trainers: Trainer) -> list:
+    return [str(Path(t.paths.output).parent) + "/" for t in trainers]
+
+
+def replay_rows(entries, roots) -> list:
+    """(path, name, scores) of replay entries, each run directory of
+    `roots` cut from the paths (a resumed run replays its predecessor's
+    files)."""
+    def rel(p):
+        for r in roots:
+            p = p.replace(r, "/")
+        return p
+    return [(rel(e.enhanced_path), e.name, e.scores) for e in entries]
+
+
+def read_log(t: Trainer) -> str:
+    with open(t.paths.log_file) as f:
+        return f.read()
+
+
+def same_run(a: Trainer, b: Trainer) -> dict:
+    """Bit-for-bit comparison of two runs: state (Adam moments, u and v
+    included), replay, history, log."""
+    roots = run_roots(a, b)
+    return {"state": states_equal(a.state, b.state),
+            "replay": (replay_rows(a.replay.entries, roots)
+                       == replay_rows(b.replay.entries, roots)),
+            "history": a.history == b.history,
+            "log": read_log(a) == read_log(b)}
+
+
+def scores_rel(got, want, roots, names=SCORE_METRICS) -> dict:
+    """Per metric, the largest |a - b| / max(|b|, 1) over two lists of
+    replay entries, entry for entry; their paths and names must agree."""
+    ra, rb = replay_rows(got, roots), replay_rows(want, roots)
+    if [r[:2] for r in ra] != [r[:2] for r in rb]:
+        raise AssertionError("replay paths differ between the runs")
+    return {m: max(abs(x[2][j] - y[2][j]) / max(abs(y[2][j]), 1.0)
+                   for x, y in zip(ra, rb))
+            for j, m in enumerate(SCORE_METRICS) if m in names}
+
+
+def check_epoch_launches(t: SmokeTrainer, label: str) -> None:
+    """IMCRA launched once per featurized batch, linrec once per PESQ
+    chunk, the cascade and linrec_bwd not at all, in every epoch."""
+    for rec in t.epochs:
+        la, calls = rec["launches"], rec["calls"]
+        want = {name: 0 for name in la}
+        want["imcra_scan"] = calls.get("featurize", 0)
+        want["linrec"] = calls.get("pesq", 0)
+        if la != want or not (want["imcra_scan"] > 0 and (
+                want["linrec"] > 0 or "pesq" not in t.metric_set)):
+            raise AssertionError(f"trainer {label} epoch {rec['epoch']}: "
+                                 f"launches {la}, expected {want}")
+
+
+def small_config(epochs: int) -> Config:
+    return Config(model=dataclasses.replace(Config().model, gen_hidden=32,
+                                            gen_blocks=2),
+                  train=dataclasses.replace(
+                      Config().train, batch_size=4, num_sampling=8,
+                      num_valid=TRAINER_SMALL_TEST, gan_epochs=epochs))
+
+
+def trainer_phase(dev, tmp: str) -> dict:
+    """The training loop (`train/loop.py`) on the card; every check raises.
+    Full width (Config(), batch 8, 16 sampled and 8 validation utterances
+    of 32 and 8, all five metrics, three epochs): launch counts per epoch;
+    exact resume (epochs 1-2, a fresh Trainer resumes and runs epoch 3)
+    bit for bit against the same run with its caches emptied before epoch
+    3, and within CACHE_BAR and F32_UPDATE_BAR of the straight run with
+    warm caches; a fourth, traced epoch for the busy shares.  Small config
+    (hidden 32, 2 blocks, batch 4, 8 training utterances, ESTOI and
+    PESQ): recovery from a fault in epoch 2 against a straight run emptied
+    before epoch 2; the card against the CPU.  The paper's epoch size
+    (PAPER_SAMPLED sampled, PAPER_VALID validated) at full width, cold and
+    warm."""
+    t_phase = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = True
+    SmokeTrainer.tally = tally = Tally()
+    try:
+        res = trainer_checks(dev, tmp)
+    finally:
+        tally.restore()
+        SmokeTrainer.tally = None
+        cudnn.deterministic = deterministic
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"trainer phase: {res['phase_s']:.1f} s")
+    return res
+
+
+def trainer_checks(dev, tmp: str) -> dict:
+    corpus, small = f"{tmp}/trainer_corpus", f"{tmp}/trainer_small"
+    write_trainer_corpus(corpus, TRAINER_TRAIN, TRAINER_TEST, seed=13)
+    write_trainer_corpus(small, TRAINER_SMALL_TRAIN, TRAINER_SMALL_TEST,
+                         seed=14)
+    cfg = Config(train=dataclasses.replace(
+        Config().train, batch_size=8, num_sampling=16, num_valid=8,
+        gan_epochs=TRAINER_EPOCHS))
+
+    def full(run, **kw):
+        return SmokeTrainer(trainer_paths(corpus, f"{tmp}/{run}"), cfg,
+                            metric_set=SCORE_METRICS, device=dev, **kw)
+
+    # 1. the straight run, three epochs, then a fourth traced one
+    t0 = time.perf_counter()
+    straight = full("straight")
+    origin = copy.deepcopy(straight.state)
+    straight.run(TRAINER_EPOCHS)
+    straight_s = time.perf_counter() - t0
+    warm_state = copy.deepcopy(straight.state)
+    warm_replay = copy.deepcopy(straight.replay.entries)
+    check_epoch_launches(straight, "straight")
+    straight.trace_dir = f"{tmp}/trace"
+    straight.start_epoch = TRAINER_EPOCHS + 1
+    straight.run(TRAINER_EPOCHS + 1)
+    check_epoch_launches(straight, "traced")
+    written = {k: v for k, v in straight.tally.calls.items()
+               if isinstance(k, tuple) and k[0] == "raw-enh"}
+    if (written.get(("raw-enh", "scoring", "written", "miss"))
+            or not written.get(("raw-enh", "scoring", "written", "hit"))):
+        raise AssertionError(f"trainer: score_corpus missed the enhanced "
+                             f"rows the loop parked: {written}")
+    epochs = [{k: v for k, v in r.items() if k != "d_step_losses"}
+              for r in straight.epochs]
+    print(f"trainer at full width, {TRAINER_EPOCHS} epochs in "
+          f"{straight_s:.1f} s: {json.dumps(epochs)}")
+
+    # 2. exact resume: epochs 1-2, then a fresh Trainer resumes epoch 3;
+    # the reference is the same run with its caches emptied before epoch 3
+    ref = full("resume_ref")
+    ref.run(TRAINER_EPOCHS - 1)
+    resumed_dir = f"{tmp}/resumed"
+    shutil.copytree(ref.paths.checkpoints, f"{resumed_dir}/chkpt",
+                    symlinks=True)
+    shutil.copy(ref.paths.log_file, f"{resumed_dir}/log.txt")
+    ref.clear_caches()
+    ref.start_epoch = TRAINER_EPOCHS
+    ref.run(TRAINER_EPOCHS)
+    resumed = full("resumed")
+    resumed.resume(truncate_log=True)
+    if resumed.start_epoch != TRAINER_EPOCHS:
+        raise AssertionError(f"resume: start epoch {resumed.start_epoch}")
+    resumed.run(TRAINER_EPOCHS)
+    for t, label in ((ref, "resume_ref"), (resumed, "resumed")):
+        check_epoch_launches(t, label)
+    exact = same_run(resumed, ref)
+    warm_pair = {"scores": scores_rel(resumed.replay.entries, warm_replay,
+                                      run_roots(resumed, straight, ref)),
+                 "state": state_errors(resumed.state, warm_state, origin)}
+    print(f"exact resume at full width (epochs 1-2, a fresh Trainer resumes "
+          f"epoch 3) against the run emptied before epoch 3: {exact}; "
+          f"against the straight run with warm caches: {warm_pair} (bars "
+          f"CACHE_BAR {CACHE_BAR}, F32_UPDATE_BAR {F32_UPDATE_BAR})")
+    if not all(exact.values()):
+        raise AssertionError(f"resume is not exact: {exact}")
+    if not (all(v < CACHE_BAR for v in warm_pair["scores"].values())
+            and warm_pair["state"]["update_rel"] <= F32_UPDATE_BAR):
+        raise AssertionError(f"resumed vs warm straight run: {warm_pair}")
+
+    # the pre-enhanced files the resumed run scored in epoch 3, in its
+    # order, through a fresh CleanSidePool (each KLT a pool miss, taken
+    # alone) and without one (beside the degraded signal)
+    files = list(resumed._drc_score_cache)
+    names = [os.path.basename(p) for p in files]
+    idx = resumed.train_index
+    triple = ([read_wav(idx.clean_path_for(n))[0] for n in names],
+              [read_wav(idx.noise_path(idx.clean_path_for(n)))[0]
+               for n in names], [read_wav(p)[0] for p in files])
+    pooled = metrics.score_corpus(*triple, clean_cache=CleanSidePool(),
+                                  clean_keys=names, enhanced_keys=files,
+                                  device=dev)
+    plain = metrics.score_corpus(*triple, device=dev)
+    drc_pool = max_rel(pooled, plain)
+    print(f"the {len(files)} pre-enhanced files of epoch 3 through a fresh "
+          f"CleanSidePool against none (calibrated): {drc_pool}")
+    if not all(v < CACHE_BAR for v in drc_pool.values()):
+        raise AssertionError(f"pool vs none on the trainer's files: "
+                             f"{drc_pool}")
+
+    # 3. recovery at the small config
+    scfg = small_config(3)
+    attempts = {"n": 0}
+
+    class Flaky(SmokeTrainer):
+        def run_epoch(self, epoch):
+            if attempts["n"] == 1 and epoch == 2:
+                raise RuntimeError("injected device fault")
+            return super().run_epoch(epoch)
+
+    def small_trainer(run, cls=SmokeTrainer, c=scfg, device=dev):
+        return cls(trainer_paths(small, f"{tmp}/{run}"), c,
+                   metric_set=TRAINER_SMALL_METRICS, device=device)
+
+    def make():
+        attempts["n"] += 1
+        return small_trainer("flaky", Flaky)
+
+    recovered = run_with_recovery(make, epochs=3, max_retries=2,
+                                  backoff_seconds=0.01)
+    rref = small_trainer("recovery_ref")
+    rref.run(1)
+    rref.clear_caches()
+    rref.start_epoch = 2
+    rref.run(3)
+    recovery = dict(same_run(recovered, rref), attempts=attempts["n"],
+                    log_lines=len(read_log(recovered).splitlines()))
+    print(f"recovery (fault in epoch 2, one rebuild) against a straight run "
+          f"emptied before epoch 2: {recovery}")
+    check_epoch_launches(recovered, "recovered")
+    check_epoch_launches(rref, "recovery_ref")
+    if not (attempts["n"] == 2 and recovery["log_lines"] == 3
+            and all(recovery[k] for k in ("state", "replay", "history",
+                                          "log"))):
+        raise AssertionError(f"recovery: {recovery}")
+
+    # 4. the card against the CPU, the same config and initial state; the
+    # card's D trains on the CPU's scores, so that both devices' D losses
+    # have the same targets (the card's own scores are held apart)
+    pcfg = small_config(2)
+    t0 = time.perf_counter()
+    cpu = small_trainer("cpu", c=pcfg, device="cpu")
+    cpu.run(2)
+    cpu_s = time.perf_counter() - t0
+    base = small_trainer("card", c=pcfg)
+    base.targets = cpu.scored
+    base.run(2)
+    check_epoch_launches(base, "card vs CPU")
+    # the CPU against itself from an initial state one float32 ulp up in
+    # every parameter: how far float32 round-off alone carries two epochs
+    ulp = small_trainer("cpu_ulp", c=pcfg, device="cpu")
+    with torch.no_grad():
+        for p in itertools.chain(ulp.state.gen.parameters(),
+                                 ulp.state.d.parameters(),
+                                 ulp.state.dq.parameters()):
+            p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    ulp.run(2)
+    cpu_origin = gan.init_train_state(pcfg, pcfg.train.seed, "cpu")
+    if ([(k, sorted(v)) for k, v in sorted(base.scored.items())]
+            != [(k, sorted(v)) for k, v in sorted(cpu.scored.items())]
+            or replay_rows(base.replay.entries, run_roots(base))
+            != replay_rows(cpu.replay.entries, run_roots(cpu))):
+        raise AssertionError("trainer card vs CPU: files or replay differ")
+    card_err = {m: max(abs(base.scored[k][m] - v[m]) / max(abs(v[m]), 1.0)
+                       for k, v in cpu.scored.items())
+                for m in TRAINER_SMALL_METRICS}
+
+    def drift(run):
+        """`run` against the CPU run: G's epoch loss and each D head's
+        epoch mean, relative; each D step's loss relative to its head's
+        epoch mean on the CPU (a step near its target has a loss near 0,
+        whose own relative error says nothing); the state."""
+        if [len(r["d_step_losses"]) for r in run.epochs] != [
+                len(r["d_step_losses"]) for r in cpu.epochs]:
+            raise AssertionError("trainer: the runs took different D steps")
+
+        def rel(pairs):
+            return max((abs(a - b) / abs(b) for a, b in pairs if b != 0),
+                       default=0.0)
+        return {"g_loss_rel": rel((r["g_loss"], q["g_loss"])
+                                  for r, q in zip(run.epochs, cpu.epochs)),
+                "d_epoch_loss_rel": rel(
+                    x for r, q in zip(run.epochs, cpu.epochs)
+                    for x in zip(r["d_loss"], q["d_loss"])),
+                "d_step_loss_rel": max(
+                    abs(a[k] - b[k]) / abs(q["d_loss"][k])
+                    for r, q in zip(run.epochs, cpu.epochs)
+                    for a, b in zip(r["d_step_losses"], q["d_step_losses"])
+                    for k in (0, 1) if q["d_loss"][k] != 0),
+                "epoch_losses": [{"g": (r["g_loss"], q["g_loss"]),
+                                  "d": list(zip(r["d_loss"], q["d_loss"]))}
+                                 for r, q in zip(run.epochs, cpu.epochs)],
+                "state": state_errors(run.state, cpu.state, cpu_origin)}
+    vs_cpu = dict(drift(base), scores=card_err, cpu_seconds=cpu_s)
+    ulp_pair = drift(ulp)
+    ulp_pair.pop("epoch_losses")
+    print(f"trainer, card against CPU (small config, 2 epochs, same initial "
+          f"state, the card's D on the CPU's scores): {vs_cpu}; the CPU "
+          f"against itself one ulp away: {ulp_pair}; bars {SCORE_BARS}, "
+          f"F32_LOSS_BAR {F32_LOSS_BAR} (G), F32_UPDATE_BAR {F32_UPDATE_BAR}"
+          f" (D losses, state)")
+    vs_cpu["cpu_one_ulp_away"] = ulp_pair
+    # G's epoch loss is held to the one-step bar; a D loss, taken after up
+    # to 30 D steps and one G epoch, is a function of the stepped state
+    # and is held to the bar of the state's update (one ulp of initial
+    # state already moves it past F32_LOSS_BAR on the CPU alone)
+    if not (all(card_err[m] < SCORE_BARS[m] for m in card_err)
+            and vs_cpu["g_loss_rel"] <= F32_LOSS_BAR
+            and vs_cpu["d_epoch_loss_rel"] <= F32_UPDATE_BAR
+            and vs_cpu["d_step_loss_rel"] <= F32_UPDATE_BAR
+            and vs_cpu["state"]["update_rel"] <= F32_UPDATE_BAR):
+        raise AssertionError(f"trainer card vs CPU: {vs_cpu}")
+
+    # 5. the paper's epoch size: cold, then warm
+    paper_corpus = f"{tmp}/trainer_paper"
+    write_trainer_corpus(paper_corpus, PAPER_SAMPLED, PAPER_VALID, seed=15)
+    paper_cfg = Config(train=dataclasses.replace(
+        Config().train, batch_size=8, num_sampling=PAPER_SAMPLED,
+        num_valid=PAPER_VALID, gan_epochs=PAPER_EPOCHS))
+    t0 = time.perf_counter()
+    paper = SmokeTrainer(trainer_paths(paper_corpus, f"{tmp}/paper"),
+                         paper_cfg, metric_set=SCORE_METRICS, device=dev)
+    paper.run(PAPER_EPOCHS)
+    paper_s = time.perf_counter() - t0
+    check_epoch_launches(paper, "paper size")
+    paper_epochs = [{k: v for k, v in r.items() if k != "d_step_losses"}
+                    for r in paper.epochs]
+    print(f"trainer at the paper's epoch size ({PAPER_SAMPLED} sampled, "
+          f"{PAPER_VALID} validated), {PAPER_EPOCHS} epochs in "
+          f"{paper_s:.1f} s: {json.dumps(paper_epochs)}")
+
+    ep = {r["epoch"]: r for r in straight.epochs}
+    launches = {name: sum(ep[e]["launches"][name]
+                          for e in range(1, TRAINER_EPOCHS + 1))
+                for name in kernels.launches}
+    return {"epochs": epochs, "straight_s": straight_s,
+            "launches": launches,
+            "featurized_batches": sum(ep[e]["calls"].get("featurize", 0)
+                                      for e in range(1, TRAINER_EPOCHS + 1)),
+            "pesq_chunks": sum(ep[e]["calls"].get("pesq", 0)
+                               for e in range(1, TRAINER_EPOCHS + 1)),
+            "utterances_per_s": {"cold": ep[1]["utterances_per_s"],
+                                 "warm": ep[TRAINER_EPOCHS][
+                                     "utterances_per_s"]},
+            "paper_size": {"epochs": paper_epochs, "seconds": paper_s,
+                           "utterances_per_s": {
+                               "cold": paper.epochs[0]["utterances_per_s"],
+                               "warm": paper.epochs[-1][
+                                   "utterances_per_s"]}},
+            "busy_share_warm": straight.busy,
+            "raw_enh_lookups": {"_".join(k): v for k, v in written.items()},
+            "exact_resume": exact, "warm_pair": warm_pair,
+            "drc_pool_vs_none": drc_pool,
+            "recovery": recovery, "card_vs_cpu": vs_cpu}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2721,6 +3290,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
         inferred = infer_phase(dev, tmp)
         scored = scoring_phase(dev, tmp, inferred)
+        trained = trainer_phase(dev, tmp)
     for rec in records:
         rec["launches"] = serving["launches"][rec["name"]]
         rec["training_launches"] = training["launches"][rec["name"]]
@@ -2728,6 +3298,7 @@ def main() -> None:
         rec["scoring_launches"] = scored["launches"][rec["name"]]
         rec["kernel_phase_launches"] = checked[rec["name"]]
         rec["gradient_launches"] = gradient["launches"][rec["name"]]
+        rec["trainer_launches"] = trained["launches"][rec["name"]]
     # linrec's path is scoring (PESQ's gain memory through cli/infer
     # --metrics), linrec_bwd's the gradient phase (PESQ's gradient)
     records[2]["launches"] = scored["launches"]["linrec"]
@@ -2737,6 +3308,8 @@ def main() -> None:
     for rec in records:
         rec["streaming_launches"] = streamed["launches_all"][rec["name"]]
     records[0]["infer_batches_plus_mmse_calls"] = inferred["batches"] + 1
+    records[0]["trainer_featurized_batches"] = trained["featurized_batches"]
+    records[2]["trainer_pesq_chunks"] = trained["pesq_chunks"]
     print(json.dumps({"serving": {k: v for k, v in serving.items()
                                   if k not in ("launches", "profile")}}))
     print(json.dumps({"training": training}))
@@ -2744,6 +3317,7 @@ def main() -> None:
     print(json.dumps({"infer": inferred}))
     print(json.dumps({"scoring": scored}))
     print(json.dumps({"gradient": gradient}))
+    print(json.dumps({"trainer": trained}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

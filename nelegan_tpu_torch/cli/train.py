@@ -1,0 +1,114 @@
+"""Training CLI: the reference's `python train_nele.py` with flags instead of
+edited source (reference: train_nele.py:30-68, README.md:43).
+
+Counterpart of `nelegan_tpu/cli/train.py`, with `--device` (default
+`cuda`; without a GPU pass `cpu`) in place of `--platform`:
+
+    python -m nelegan_tpu_torch.cli.train \\
+        --train-clean .../Train/Clean --train-noise .../Train/Noise \\
+        --test-clean .../Test/Clean --test-noise .../Test/Noise \\
+        [--train-enhanced .../Train/MultiEnh] [--epochs 500] [--resume] \\
+        [--device cuda]
+
+`--compute-dtype bfloat16` raises (the models' bfloat16 policy is not
+ported), as does `--data-parallel` with more than one visible GPU.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--train-clean", required=True)
+    p.add_argument("--train-noise", required=True)
+    p.add_argument("--test-clean", required=True)
+    p.add_argument("--test-noise", required=True)
+    p.add_argument("--train-enhanced", default=None,
+                   help="pre-enhanced (e.g. SSDRC) parallel corpus for D")
+    p.add_argument("--output", default="./output")
+    p.add_argument("--checkpoints", default="./chkpt")
+    p.add_argument("--log-file", default="./log.txt")
+    p.add_argument("--epochs", type=int, default=500)
+    p.add_argument("--num-sampling", type=int, default=300)
+    p.add_argument("--num-valid", type=int, default=480)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--seed", type=int, default=666)
+    p.add_argument("--lr-g", type=float, default=5e-4)
+    p.add_argument("--lr-d", type=float, default=2.5e-4)
+    p.add_argument("--weight-qua", type=float, default=0.5)
+    p.add_argument("--metrics", default="siib,haspi,estoi,pesq,visqol")
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="model trunk activation dtype (bfloat16 is not "
+                        "ported and raises)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="data parallelism over GPUs (not ported: raises "
+                        "with more than one visible GPU)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint")
+    p.add_argument("--max-retries", type=int, default=0,
+                   help="elastic recovery: on failures, rebuild the "
+                        "trainer, resume from the latest checkpoint and "
+                        "continue (up to N extra attempts)")
+    p.add_argument("--init-from-torch", default=None,
+                   help="reference chkpt_GD.pt to initialise from")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; without a GPU pass 'cpu' explicitly")
+    p.add_argument("--verbose-timing", action="store_true",
+                   help="print per-epoch phase timing deltas")
+    return p
+
+
+def main(argv=None):
+    """Runs the CLI; returns the trainer of the last attempt."""
+    args = build_parser().parse_args(argv)
+
+    from nelegan_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from nelegan_tpu_torch.device import disable_tf32, resolve_device
+    from nelegan_tpu_torch.train.loop import Trainer, TrainPaths
+
+    device = resolve_device(args.device)
+    disable_tf32()
+    cfg = Config(train=TrainConfig(
+        gan_epochs=args.epochs, num_sampling=args.num_sampling,
+        num_valid=args.num_valid, batch_size=args.batch_size,
+        seed=args.seed, lr_g=args.lr_g, lr_d=args.lr_d,
+        lr_dqua=args.lr_d, weight_qua=args.weight_qua),
+        model=ModelConfig(compute_dtype=args.compute_dtype))
+    paths = TrainPaths(
+        train_clean=args.train_clean, train_noise=args.train_noise,
+        test_clean=args.test_clean, test_noise=args.test_noise,
+        train_enhanced=args.train_enhanced, output=args.output,
+        checkpoints=args.checkpoints, log_file=args.log_file)
+
+    metrics = tuple(m.strip() for m in args.metrics.split(",") if m.strip())
+
+    def make_trainer():
+        trainer = Trainer(paths, cfg, metric_set=metrics,
+                          data_parallel=args.data_parallel, device=device)
+        if args.init_from_torch:
+            from nelegan_tpu_torch.train.checkpoint import (
+                load_reference_checkpoint)
+            trainer.state = load_reference_checkpoint(args.init_from_torch,
+                                                      trainer.state)
+            print(f"initialised from {args.init_from_torch}")
+        if args.resume:
+            trainer.resume(truncate_log=True)
+            print(f"resumed at epoch {trainer.start_epoch}")
+        return trainer
+
+    if args.max_retries > 0:
+        from nelegan_tpu_torch.train.resilience import run_with_recovery
+        return run_with_recovery(make_trainer, args.epochs,
+                                 max_retries=args.max_retries,
+                                 verbose_timing=args.verbose_timing)
+    trainer = make_trainer()
+    trainer.run(args.epochs, verbose_timing=args.verbose_timing)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

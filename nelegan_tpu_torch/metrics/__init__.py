@@ -249,7 +249,7 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
             return torch.as_tensor(buf, device=dev)
 
         def decode(a):
-            return a.to(tdtype) / 32768.0 if a.dtype == torch.int16 else a
+            return pcm16_to_float(a, tdtype) if a.dtype == torch.int16 else a
 
         def pack(src_list):
             return decode(pack_raw(src_list))
@@ -347,6 +347,20 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
                     raw = float(chunk[k, j])
                     results[i][m] = float(mappers[m](raw)) if norm else raw
     return results
+
+
+def pcm16_to_float(a: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """PCM16 samples (int16) -> `dtype` on their device, the decoder's
+    formula (data/wavio.py): int16 / 32768."""
+    return a.to(dtype) / 32768.0
+
+
+def pad_rows_to(a: torch.Tensor, width: int) -> torch.Tensor:
+    """[B, n] rows zero-padded on the right to [B, width]: the training
+    loop's enhancement-bucket rows (4096-quantised) into the scoring
+    bucket's (16384-quantised) enhanced-row pool."""
+    return torch.nn.functional.pad(a, (0, width - a.shape[-1]))
 
 
 def _pcm16_exact(x) -> bool:

@@ -66,7 +66,17 @@ def _stack_pair(x: torch.Tensor, y: torch.Tensor | None, n_valid):
 
     Returns (vx, vy, scnt): zero-mean stacked vectors [B, S, K*J] of both
     signals (vy None when y is None) and the live-vector count [B], all
-    float64."""
+    float64.
+
+    The whole front end runs in float64, whatever the signals' type (the
+    reference's pysiib is float64 throughout).  The KLT of a tiled
+    utterance's covariance can be so ill-conditioned that float32
+    round-off in the clean log-energies turns it: on the card a float32
+    front end scored one utterance 2% apart depending on whether its KLT
+    was taken alone (a pool miss) or beside the degraded signal, that is on
+    the FFT batch it ran in."""
+    x = x.to(torch.float64)
+    y = None if y is None else y.to(torch.float64)
     w = const(np.hanning(WIN + 2)[1:-1], x)
     xf = _frame(x, WIN, HOP) * w
     nf = xf.shape[-2]
@@ -86,12 +96,12 @@ def _stack_pair(x: torch.Tensor, y: torch.Tensor | None, n_valid):
 
     g = const(_gammatone_matrix(), x)
     p2 = torch.abs(torch.fft.rfft(xy, NFFT, dim=-1)) ** 2     # [B, S2, F, 257]
-    # float64 from the log-energies on, whatever x's type, as the reference
-    # package computes under x64 (its float64 epsilon promotes e2): in
-    # float32 the KLT of a tiled utterance's nearly rank-deficient
-    # covariance leaks into its null space, and the capacity reads those
-    # directions' round-off (a 1-s utterance: 31.4 bits/s against 20.1)
-    e2 = torch.log((p2 @ g.T).to(torch.float64) + _EPS)      # [B, S2, F, J]
+    # float64 (the reference package promotes from here on under x64, its
+    # float64 epsilon promoting e2): in float32 the KLT of a tiled
+    # utterance's nearly rank-deficient covariance leaks into its null
+    # space, and the capacity reads those directions' round-off (a 1-s
+    # utterance: 31.4 bits/s against 20.1)
+    e2 = torch.log(p2 @ g.T + _EPS)                          # [B, S2, F, J]
     f64 = e2.dtype
     livef = live.to(f64)[:, None, :, None]
     cnt = torch.clamp_min(kcount, 1).to(f64)[:, None, None, None]

@@ -19,12 +19,13 @@ from nelegan_tpu.config import config_to_dict as jax_config_to_dict
 from nelegan_tpu.train import gan as jgan
 from nelegan_tpu.train.checkpoint import save_checkpoint as jax_save
 from nelegan_tpu_torch.cli import (collect_norm, eval_reverb, export_torch,
-                                   infer, serve, stream)
-from nelegan_tpu_torch.config import Config, ModelConfig
+                                   infer, serve, stream, train)
+from nelegan_tpu_torch.config import Config, ModelConfig, TrainConfig
 from nelegan_tpu_torch.models.convert import (reference_state_dicts,
                                               train_state_from_jax)
 from nelegan_tpu_torch.train import checkpoint as ckpt
 from nelegan_tpu_torch.train import flax_msgpack, gan
+from nelegan_tpu_torch.train.loop import Trainer, TrainPaths
 
 CFG = dataclasses.replace(Config(), model=ModelConfig(
     gen_hidden=16, gen_blocks=3, disc_channels=(4, 8), disc_kernels=(1, 3)))
@@ -342,3 +343,41 @@ def test_serve_checkpoint_loads_the_same_generator(jax_ckpt, tmp_path,
     serve.main(["--checkpoint", path, "--torch-checkpoint", ref,
                 "--warmup-lengths", "", "--device", "cpu"])
     _state_dicts_equal(seen["generator"].state_dict(), other)
+
+
+def test_train_cli_equals_its_trainer(corpus, tmp_path):
+    """`cli/train --device cpu` for one epoch at the default (full-width)
+    model equals, bit for bit, a Trainer built with the config the CLI
+    builds; `--resume` runs epoch 2 from its checkpoint; the bfloat16
+    policy raises.  The corpus serves as training and test set."""
+    def args(run):
+        return ["--train-clean", str(corpus / "Clean"), "--train-noise",
+                str(corpus / "Noise"), "--test-clean", str(corpus / "Clean"),
+                "--test-noise", str(corpus / "Noise"), "--num-sampling", "4",
+                "--num-valid", "1", "--batch-size", "4", "--metrics",
+                "pesq", "--output", str(run / "out"), "--checkpoints",
+                str(run / "chkpt"), "--log-file", str(run / "log.txt"),
+                "--device", "cpu"]
+
+    t = train.main(args(tmp_path / "cli") + ["--epochs", "1"])
+    cfg = Config(train=TrainConfig(gan_epochs=1, num_sampling=4, num_valid=1,
+                                   batch_size=4))
+    run = tmp_path / "ref"
+    ref = Trainer(TrainPaths(
+        train_clean=str(corpus / "Clean"), train_noise=str(corpus / "Noise"),
+        test_clean=str(corpus / "Clean"), test_noise=str(corpus / "Noise"),
+        output=str(run / "out"), checkpoints=str(run / "chkpt"),
+        log_file=str(run / "log.txt")), cfg, metric_set=("pesq",),
+        device="cpu")
+    ref.run(1)
+    assert t.cfg == ref.cfg and t.metric_set == ("pesq",)
+    _state_dicts_equal(t.state.state_dict(), ref.state.state_dict())
+    assert [e.scores for e in t.replay.entries] == \
+        [e.scores for e in ref.replay.entries]
+    assert open(t.paths.log_file).read() == open(ref.paths.log_file).read()
+
+    resumed = train.main(args(tmp_path / "cli") + ["--epochs", "2",
+                                                   "--resume"])
+    assert resumed.state.step_g == 1 and len(resumed.history["pesq"]) == 2
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        train.main(args(tmp_path / "bf16") + ["--compute-dtype", "bfloat16"])

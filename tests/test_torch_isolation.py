@@ -69,6 +69,14 @@ def test_scoring_modules_are_covered():
             "nelegan_tpu_torch.cli.collect_norm"} <= mods
 
 
+def test_trainer_modules_are_covered():
+    """The training loop's modules are among those imported and scanned."""
+    assert {"nelegan_tpu_torch.train.loop",
+            "nelegan_tpu_torch.train.resilience",
+            "nelegan_tpu_torch.cli.train",
+            "nelegan_tpu_torch.utils.profiling"} <= set(_port_modules())
+
+
 def test_no_port_source_imports_jax_or_reference_package():
     sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 10
@@ -101,11 +109,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from nelegan_tpu_torch import metrics, pipeline, streaming
     from nelegan_tpu_torch.cli import (collect_norm, eval_reverb,
-                                       export_torch, infer, serve, stream)
+                                       export_torch, infer, serve, stream,
+                                       train)
     from nelegan_tpu_torch.dsp.imcra import imcra_init
     from nelegan_tpu_torch.metrics.siib import siib
     from nelegan_tpu_torch.models.generator import Generator
     from nelegan_tpu_torch.train.checkpoint import load_generator
+    from nelegan_tpu_torch.train.loop import Trainer, TrainPaths
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gen = Generator(hidden=8, n_blocks=3)
@@ -135,6 +145,10 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: collect_norm.main(["--clean", str(tmp_path), "--noise",
                                    str(tmp_path), "--enhanced",
                                    str(tmp_path)]),
+        lambda: Trainer(TrainPaths(*[str(tmp_path)] * 4)),
+        lambda: train.main(["--train-clean", str(tmp_path), "--train-noise",
+                            str(tmp_path), "--test-clean", str(tmp_path),
+                            "--test-noise", str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

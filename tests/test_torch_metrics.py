@@ -325,3 +325,35 @@ def test_score_corpus_matches_jax(triples, jax_scores):
                                    jnp.asarray(np.array(lens))))
         for j in range(2):
             assert abs(got[j][m] - want[j]) < 1e-9 * abs(want[j]), (m, j)
+
+
+def test_siib_of_a_trainer_file_alone_or_beside_its_degraded_signal(
+        tmp_path):
+    """The calibrated SIIB of chip_smoke.py's pre-enhanced utterance tr03
+    (its trainer corpus, seed 13: 14975 samples, PCM16, float32), scored
+    with its KLT taken alone (a fresh CleanSidePool: a miss) and beside the
+    degraded signal (no pool), by both packages on the CPU.  On the card a
+    float32 front end scored it 1.7e-3 apart between the two; here the JAX
+    package gives one value both ways (its float32 front end), and the
+    port's float64 front end is within JAX_BARS of it (measured 3.2e-9)."""
+    from chip_smoke import write_trainer_corpus
+    from nelegan_tpu.metrics import score_corpus as jax_score_corpus
+    from nelegan_tpu.metrics.clean_pool import CleanSidePool as JaxPool
+    from nelegan_tpu_torch.data.wavio import read_wav
+
+    write_trainer_corpus(str(tmp_path), 4, 0, seed=13)
+    name = "tr03#Cafeteria#3.wav"
+    c, n, e = (read_wav(str(tmp_path / "Train" / d / name))[0]
+               for d in ("Clean", "Noise", "MultiEnh"))
+    kw = dict(metrics=("siib",))
+    got = {"beside": metrics.score_corpus([c], [n], [e], device="cpu", **kw),
+           "alone": metrics.score_corpus([c], [n], [e], device="cpu",
+                                         clean_cache=CleanSidePool(),
+                                         clean_keys=[name], **kw)}
+    want = {"beside": jax_score_corpus([c], [n], [e], **kw),
+            "alone": jax_score_corpus([c], [n], [e], clean_cache=JaxPool(),
+                                      clean_keys=[name], **kw)}
+    assert want["alone"] == want["beside"]
+    assert got["alone"] == got["beside"]
+    g, w = got["alone"][0]["siib"], want["alone"][0]["siib"]
+    assert abs(g - w) < JAX_BARS["siib"] * abs(w), (g, w)
