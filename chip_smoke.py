@@ -167,12 +167,34 @@ Phases, in order; any failure raises:
      training utterances, 480 validated), two epochs, cold and warm, with
      their launch counts.  Per epoch: phase seconds, G and D steps, pool
      hits, misses and bytes, training utterances/s;
- 10. one JSON line per phase, one of kernel records (each with its launches
-     on the serving, training, streaming, infer, scoring, gradient and
-     trainer paths and in the kernel phase; `launches` is its own path's:
-     serving for IMCRA and the cascade, scoring for linrec, the gradient
-     phase for linrec_bwd), the card line again, and last
-     `{"ok": true, "device": ...}`.
+ 10. mixed-precision phase (`compute_dtype="bfloat16"`, models/), full
+     width, batch 8, bucket 36864, TF32 off: the same weights and inputs
+     under both policies (equal float32 initial states), the bfloat16 mask
+     against float32 on valid frames within the reference package's bars
+     (mean and max relative, MP_MEAN_BAR and MP_MAX_BAR) and both
+     discriminators' scores within MP_SCORE_BAR, all outputs float32; one
+     bfloat16 G step and D step (finite losses; parameters, u and v float32,
+     finite, moved); G-step and D-step times, busy shares and top device
+     operations under each policy; a bfloat16 Trainer for two epochs (cold,
+     warm) on the trainer phase's corpus, beside that phase's float32
+     epochs, IMCRA and linrec once per featurized batch and PESQ chunk;
+ 11. direct phase (`train/direct.py`): the seeded full-width generator and
+     the training batch's eight rows, featurized once (one IMCRA launch);
+     the direct loss with ESTOI, HASPI and PESQ (weights 1) and its
+     gradient in float32 on the card against the CPU's float64 on
+     DIRECT_CPU_ROWS rows (DIRECT_LOSS_BAR, DIRECT_GRAD_BAR for each
+     parameter in norm); DIRECT_STEPS ESTOI steps: the loss falls and the
+     real ESTOI (PCM16 enhanced output plus noise) rises over the seeded
+     weights'; a step's time by term (ESTOI; + HASPI; + PESQ; CUDA events),
+     its peak memory, one step's busy share; linrec and linrec_bwd once per
+     step that weighs PESQ and never otherwise, IMCRA never in the steps;
+     one ESTOI + PESQ step under the bfloat16 policy, finite;
+ 12. one JSON line per phase, one of kernel records (each with its launches
+     on the serving, training, streaming, infer, scoring, gradient,
+     trainer, mixed-precision and direct paths and in the kernel phase;
+     `launches` is its own path's: serving for IMCRA and the cascade,
+     scoring for linrec, the direct phase for linrec_bwd), the card line
+     again, and last `{"ok": true, "device": ...}`.
 """
 from __future__ import annotations
 
@@ -212,7 +234,7 @@ from nelegan_tpu_torch.metrics.siib import (_capacity, _klt, _stack_pair,
                                             siib_prepare)
 from nelegan_tpu_torch.models.generator import Generator
 from nelegan_tpu_torch.ops import cascade, iir
-from nelegan_tpu_torch.train import checkpoint, gan
+from nelegan_tpu_torch.train import checkpoint, direct, gan
 from nelegan_tpu_torch.train.loop import Trainer, TrainPaths
 from nelegan_tpu_torch.train.resilience import run_with_recovery
 from nelegan_tpu_torch.utils.profiling import trace_context
@@ -329,6 +351,25 @@ TRAINER_TRAIN, TRAINER_TEST, TRAINER_EPOCHS = 32, 8, 3
 TRAINER_SMALL_TRAIN, TRAINER_SMALL_TEST = 8, 4
 TRAINER_SMALL_METRICS = ("estoi", "pesq")
 PAPER_SAMPLED, PAPER_VALID, PAPER_EPOCHS = 300, 480, 2
+# Mixed-precision phase: the bfloat16 mask against float32 on valid frames
+# within the reference package's bars (tests/test_mixed_precision.py:68-69:
+# mean and max relative difference), both discriminators' scores within
+# MP_SCORE_BAR (:83); the bfloat16 trainer runs MP_EPOCHS epochs.
+MP_MEAN_BAR, MP_MAX_BAR, MP_SCORE_BAR = 0.03, 0.25, 0.02
+MP_EPOCHS = 2
+# Direct phase: the card's float32 direct loss (ESTOI + HASPI + PESQ,
+# weights 1) and each parameter's gradient against the CPU's float64 on
+# DIRECT_CPU_ROWS rows, fixed in PERF.md before the first run at about ten
+# times the port's float32 on the CPU against its float64 on the same
+# inputs (loss 5.6e-7, gradients up to 3.3e-6 in norm); DIRECT_STEPS ESTOI
+# steps; each term's step timed DIRECT_TIMED times.
+DIRECT_CPU_ROWS = 2
+DIRECT_LOSS_BAR = 5e-6
+DIRECT_GRAD_BAR = 3e-5
+DIRECT_STEPS = 12
+DIRECT_TIMED = 5
+DIRECT_TERMS = (("estoi", 0.0, 0.0), ("estoi_haspi", 1.0, 0.0),
+                ("estoi_haspi_pesq", 1.0, 1.0))
 # tests/test_pesq.py's burst train with a delayed middle section, for the
 # alignment stages on the card
 BURSTS, BURST_LEN, GAP_LEN, JUMP = 10, 1920, 2880, 1900
@@ -402,19 +443,25 @@ def _device_us(event) -> float:
     return event.self_cuda_time_total if us is None else us
 
 
-def profiler_ms(fn, kernel: str, calls: int = 10) -> float:
+def profiler_ms(fn, kernel: str, calls: int = 10,
+                attempts: int = 3) -> float:
     """Device time per call of the kernels named `kernel`, torch.profiler
-    over `calls` calls."""
+    over `calls` calls.  A trace that holds none of the kernel's device
+    time is taken again, up to `attempts` traces: a second run of this
+    script on one machine once read an empty trace of `linrec_bwd`'s
+    kernel after an earlier one of the same kernel had recorded it."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages() if kernel in e.key)
-    if us <= 0:
-        raise RuntimeError(f"torch.profiler recorded no device time for "
-                           f"{kernel}")
-    return us / calls / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(e) for e in prof.key_averages()
+                 if kernel in e.key)
+        if us > 0:
+            return us / calls / 1e3
+    raise RuntimeError(f"torch.profiler recorded no device time for "
+                       f"{kernel} in {attempts} traces")
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -1942,46 +1989,64 @@ def training_checks(dev, cfg):
     return checks, (state, feats, eband, targets[0], row_valid)
 
 
-def time_training(cfg, state, feats, eband, targets, row_valid) -> dict:
+def step_times(cfg, state, feats, eband, targets, row_valid) -> dict:
     """G-step and D-step times at batch 8 (CUDA events, median of 5 bursts
-    of 10 steps), and one G step's device-busy share from torch.profiler,
-    with deterministic convolutions off, as a training run uses them."""
-    torch.backends.cudnn.deterministic = False
+    of 10 steps), each step's host-clock time (median of 10) and, from
+    torch.profiler, its device time, busy share and top device operations,
+    deterministic convolutions off, as a training run uses them."""
+    cudnn = torch.backends.cudnn
+    deterministic, cudnn.deterministic = cudnn.deterministic, False
     timed = copy.deepcopy(state)
     tg, tq = targets
+    steps = {
+        "g": lambda: gan.g_step(timed, feats, cfg, INTEL_COLS, None,
+                                row_valid),
+        "d": lambda: gan.d_step_bands(
+            timed, eband, feats.noise_band, feats.clean_band, feats.frames,
+            tg, tq, cfg, intel_cols=INTEL_COLS, row_valid=row_valid)}
+    res = {}
+    try:
+        for name, step in steps.items():
+            ms = cuda_ms(step, calls=10)
+            wall = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+            wall_ms = float(np.median(wall)) * 1e3
+            prof = profile_step(step, wall_ms,
+                                label=f"{name}_step_profile_"
+                                      f"{cfg.model.compute_dtype}")
+            res[name] = {"ms": ms, "wall_ms": wall_ms,
+                         "utterances_per_s": 8 / ms * 1e3,
+                         "device_ms": prof["device_ms_per_batch"],
+                         "device_ops": prof["device_ops_per_batch"],
+                         "busy_share": prof["busy_share"],
+                         "top": prof["top"]}
+    finally:
+        cudnn.deterministic = deterministic
+    return res
 
-    def g_step():
-        return gan.g_step(timed, feats, cfg, INTEL_COLS, None, row_valid)
 
-    def d_step():
-        return gan.d_step_bands(timed, eband, feats.noise_band,
-                                feats.clean_band, feats.frames, tg, tq, cfg,
-                                intel_cols=INTEL_COLS, row_valid=row_valid)
-
-    g_ms = cuda_ms(g_step, calls=10)
-    d_ms = cuda_ms(d_step, calls=10)
-    wall = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        g_step()
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
-    g_wall_ms = float(np.median(wall)) * 1e3
-    prof = profile_step(g_step, g_wall_ms, label="g_step_profile")
-    res = {"g_step_ms": g_ms, "d_step_ms": d_ms, "g_step_wall_ms": g_wall_ms,
-           "g_utterances_per_s": 8 / g_ms * 1e3,
-           "d_utterances_per_s": 8 / d_ms * 1e3,
-           "g_device_ms": prof["device_ms_per_batch"],
-           "g_device_ops": prof["device_ops_per_batch"],
-           "g_busy_share": prof["busy_share"]}
+def time_training(cfg, state, feats, eband, targets, row_valid) -> dict:
+    """G-step and D-step times at batch 8 (`step_times`) under the float32
+    policy, the training phase's summary of them."""
+    g, d = (step_times(cfg, state, feats, eband, targets, row_valid)[k]
+            for k in ("g", "d"))
+    res = {"g_step_ms": g["ms"], "d_step_ms": d["ms"],
+           "g_step_wall_ms": g["wall_ms"],
+           "g_utterances_per_s": g["utterances_per_s"],
+           "d_utterances_per_s": d["utterances_per_s"],
+           "g_device_ms": g["device_ms"], "g_device_ops": g["device_ops"],
+           "g_busy_share": g["busy_share"], "d_busy_share": d["busy_share"]}
     print(f"training steps at batch 8, bucket {BUCKET} (T = 145), float32, "
-          f"TF32 off: G step {g_ms:.3f} ms, D step {d_ms:.3f} ms (CUDA "
+          f"TF32 off: G step {g['ms']:.3f} ms, D step {d['ms']:.3f} ms (CUDA "
           f"events, median of 5 bursts of 10); "
-          f"{res['g_utterances_per_s']:.1f} and "
-          f"{res['d_utterances_per_s']:.1f} utterances/s; one G step "
-          f"{g_wall_ms:.3f} ms host clock, device busy "
-          f"{prof['busy_share']:.3f} ({prof['device_ms_per_batch']:.3f} ms, "
-          f"{prof['device_ops_per_batch']:.0f} device ops)")
+          f"{g['utterances_per_s']:.1f} and {d['utterances_per_s']:.1f} "
+          f"utterances/s; one G step {g['wall_ms']:.3f} ms host clock, "
+          f"device busy {g['busy_share']:.3f} ({g['device_ms']:.3f} ms, "
+          f"{g['device_ops']:.0f} device ops)")
     return res
 
 
@@ -3268,6 +3333,318 @@ def trainer_checks(dev, tmp: str) -> dict:
             "recovery": recovery, "card_vs_cpu": vs_cpu}
 
 
+# ------------------------------------------------------- mixed precision
+def tensors_f32_finite(state: gan.TrainState) -> bool:
+    """Every parameter and buffer (u, v) of the three models float32 and
+    finite."""
+    return all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+               for m in (state.gen, state.d, state.dq)
+               for v in m.state_dict().values())
+
+
+def mixed_precision_phase(dev, corpus: str, tmp: str,
+                          f32_epochs: list) -> dict:
+    """The bfloat16 policy (`compute_dtype="bfloat16"`) at full width,
+    batch 8, bucket 36864, TF32 off, against float32 from the same weights
+    and inputs; every check raises.  Launch counts are zeroed at the start
+    and read at the end (the trainer's epochs each zero and read their
+    own, which are added): IMCRA once per featurized batch, linrec once per
+    PESQ chunk, as in float32.  `corpus` is the trainer phase's, whose
+    straight run's first MP_EPOCHS records (`f32_epochs`) are printed
+    beside the bfloat16 trainer's."""
+    t_phase = time.perf_counter()
+    cfg32 = Config()
+    cfg16 = Config(model=dataclasses.replace(cfg32.model,
+                                             compute_dtype="bfloat16"))
+    cp, npd, lens, row_valid = train_batch()
+    rng = np.random.RandomState(8)
+    targets = (rng.uniform(0.2, 0.9, (8, 3)).astype(np.float32),
+               rng.uniform(0.2, 0.9, (8, 2)).astype(np.float32))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with torch.no_grad():
+        feats = pipeline.featurize_batch(cp, npd, lens, cfg32.train.p_power,
+                                         cfg32.imcra, device=dev)
+    states = {"float32": gan.init_train_state(cfg32, 0, dev),
+              "bfloat16": gan.init_train_state(cfg16, 0, dev)}
+    if not (states_equal(*states.values())
+            and tensors_f32_finite(states["bfloat16"])):
+        raise AssertionError("bf16: the policies' initial states differ")
+
+    # the same weights and inputs under both policies
+    fmask = pipeline.frame_mask(feats.frames, feats.clean_band.shape[1])
+    with torch.no_grad():
+        masks = {k: s.gen(feats.clean_band, feats.noise_band)
+                 for k, s in states.items()}
+        wav, _, out_len = pipeline.enhance_batch(states["float32"].gen,
+                                                 feats, device=dev)
+    eband = gan.eband_from_enhanced(wav, out_len, cfg32, device=dev)
+    img3, img2 = gan.d_images(eband, feats.noise_band, feats.clean_band,
+                              feats.frames)
+    scores = {}
+    for k, s in states.items():
+        s.d.eval()
+        s.dq.eval()
+        with torch.no_grad():
+            scores[k] = (s.d(img3, feats.frames), s.dq(img2, feats.frames))
+        s.d.train()
+        s.dq.train()
+    rel = ((masks["bfloat16"] - masks["float32"]).abs()
+           / masks["float32"])[fmask]
+    parity = {"mask_mean_rel": float(rel.mean()),
+              "mask_max_rel": float(rel.max()),
+              "intel_max_abs": float((scores["bfloat16"][0]
+                                      - scores["float32"][0]).abs().max()),
+              "quality_max_abs": float((scores["bfloat16"][1]
+                                        - scores["float32"][1]).abs().max()),
+              "dtypes": sorted({str(x.dtype) for x in
+                                (masks["bfloat16"], *scores["bfloat16"])})}
+    print(f"bf16 against float32 on the same weights and inputs (valid "
+          f"frames): {parity}; bars {MP_MEAN_BAR}, {MP_MAX_BAR} (mask), "
+          f"{MP_SCORE_BAR} (scores)")
+    if not (parity["mask_mean_rel"] < MP_MEAN_BAR
+            and parity["mask_max_rel"] < MP_MAX_BAR
+            and parity["intel_max_abs"] < MP_SCORE_BAR
+            and parity["quality_max_abs"] < MP_SCORE_BAR
+            and parity["dtypes"] == ["torch.float32"]):
+        raise AssertionError(f"bf16 against float32: {parity}")
+
+    # one bf16 G step and one D step
+    st = copy.deepcopy(states["bfloat16"])
+    _, gl = gan.g_step(st, feats, cfg16, INTEL_COLS, None, row_valid)
+    _, dl, ql = gan.d_step_bands(st, eband, feats.noise_band,
+                                 feats.clean_band, feats.frames, *targets,
+                                 cfg16, intel_cols=INTEL_COLS,
+                                 row_valid=row_valid)
+    step_losses = [float(gl), float(dl), float(ql)]
+    origin = states["bfloat16"]
+    moved = {m: any(not torch.equal(p, q) for p, q in zip(
+        getattr(st, m).parameters(), getattr(origin, m).parameters()))
+        for m in ("gen", "d", "dq")}
+    if not (all(np.isfinite(step_losses)) and tensors_f32_finite(st)
+            and all(moved.values())):
+        raise AssertionError(f"bf16 steps: losses {step_losses}, moved "
+                             f"{moved}")
+    print(f"one bf16 G step and D step: losses {step_losses}; parameters, "
+          f"u and v float32 and finite; moved {moved}")
+
+    times = {k: step_times(c, states[k], feats, eband, targets, row_valid)
+             for k, c in (("float32", cfg32), ("bfloat16", cfg16))}
+    print(f"G and D steps by policy, batch 8, bucket {BUCKET}, TF32 off: " +
+          "; ".join(f"{k} G {v['g']['ms']:.3f} ms (busy "
+                    f"{v['g']['busy_share']:.3f}), D {v['d']['ms']:.3f} ms "
+                    f"(busy {v['d']['busy_share']:.3f})"
+                    for k, v in times.items()))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+
+    # the bf16 trainer on the trainer phase's corpus, cold then warm
+    cfg = Config(model=cfg16.model, train=dataclasses.replace(
+        Config().train, batch_size=8, num_sampling=16, num_valid=8,
+        gan_epochs=MP_EPOCHS))
+    cudnn = torch.backends.cudnn
+    deterministic, cudnn.deterministic = cudnn.deterministic, True
+    SmokeTrainer.tally = tally = Tally()
+    try:
+        t = SmokeTrainer(trainer_paths(corpus, f"{tmp}/bf16"), cfg,
+                         metric_set=SCORE_METRICS, device=dev)
+        t.run(MP_EPOCHS)
+        check_epoch_launches(t, "bf16")
+    finally:
+        tally.restore()
+        SmokeTrainer.tally = None
+        cudnn.deterministic = deterministic
+    if not tensors_f32_finite(t.state):
+        raise AssertionError("bf16 trainer: a tensor is not float32 and "
+                             "finite")
+    for rec in t.epochs:
+        for name, n in rec["launches"].items():
+            launches[name] += n
+    epochs = [{k: r[k] for k in ("epoch", "epoch_seconds", "phases_s",
+                                 "g_steps", "d_steps", "launches",
+                                 "utterances_per_s", "g_loss")}
+              for r in t.epochs]
+    beside = [{k: r[k] for k in ("epoch", "epoch_seconds", "phases_s",
+                                 "utterances_per_s")}
+              for r in f32_epochs[:MP_EPOCHS]]
+    print(f"bf16 trainer, {MP_EPOCHS} epochs (cold, warm): "
+          f"{json.dumps(epochs)}; the trainer phase's float32 epochs: "
+          f"{json.dumps(beside)}")
+    res = {"parity": parity, "step_losses": step_losses, "moved": moved,
+           "steps": times, "trainer_epochs": epochs,
+           "trainer_f32_epochs": beside, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"mixed-precision phase: {res['phase_s']:.1f} s")
+    return res
+
+
+# ------------------------------------------------------------------ direct
+def direct_rows():
+    """train_batch's eight rows (seven requests of the 36864 bucket and the
+    seventh again) as the direct step takes them: reflect-padded for
+    featurization, with lengths, and the raw clean and noise rows in
+    zero-tailed [8, BUCKET] buffers."""
+    reqs = build_requests()[:7]
+    reqs.append(reqs[-1])
+    cp, lens = pipeline.reflect_pad_batch([r[0] for r in reqs], BUCKET)
+    npd, _ = pipeline.reflect_pad_batch([r[1] for r in reqs], BUCKET)
+    wc = np.zeros((8, BUCKET), np.float32)
+    wn = np.zeros((8, BUCKET), np.float32)
+    for i, (c, n) in enumerate(reqs):
+        wc[i, :c.size], wn[i, :n.size] = c, n
+    return cp, npd, lens, wc, wn
+
+
+def real_estoi(gen, feats, wc, wn, lens, dev) -> float:
+    """Mean ESTOI (`metrics.estoi`) over the seven distinct rows of the
+    PCM16 enhanced output plus noise against the clean row, the enhanced
+    row cut to the clean row's length, as tests/test_direct.py scores."""
+    with torch.no_grad():
+        wav = pipeline.enhance_batch(gen, feats, device=dev)[0]
+        enh = pipeline.pcm16_quantize(wav)
+    return float(np.mean([float(metrics.estoi(
+        wc[i, :m], enh[i, :m] + wn[i, :m], 16000))
+        for i, m in enumerate(lens[:7].tolist())]))
+
+
+def launch_delta(before: dict) -> dict:
+    torch.cuda.synchronize()
+    return {k: v - before.get(k, 0) for k, v in kernels.launches.items()}
+
+
+def direct_phase(dev) -> dict:
+    """The direct-metric G step (`train/direct.py`) at full width: the
+    seeded generator, train_batch's eight rows featurized once (one IMCRA
+    launch), float32, TF32 off; every check raises.  Launch counts are
+    zeroed just before the featurization and read at the end; each part's
+    are read as differences: linrec and linrec_bwd once per step that
+    weighs PESQ, 0 otherwise, IMCRA 0 in the steps."""
+    t_phase = time.perf_counter()
+    cfg = Config()
+    cp, npd, lens, wc_np, wn_np = direct_rows()
+    gen0 = seeded_generator(0).to(dev)
+    wc, wn = (torch.from_numpy(a).to(dev) for a in (wc_np, wn_np))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with torch.no_grad():
+        feats = pipeline.featurize_batch(cp, npd, lens, cfg.train.p_power,
+                                         cfg.imcra, device=dev)
+    featurize = launch_delta({})
+    if featurize["imcra_scan"] != 1 or sum(featurize.values()) != 1:
+        raise AssertionError(f"direct featurization launched {featurize}")
+
+    # 1. the card's float32 against the CPU's float64, all three terms, on
+    # DIRECT_CPU_ROWS rows
+    r = DIRECT_CPU_ROWS
+    sub = pipeline.BatchFeatures(*(x[:r] for x in feats))
+    gen = copy.deepcopy(gen0)
+    loss32 = direct.direct_metric_loss(gen, sub, wc[:r], wn[:r], cfg, 1.0,
+                                       1.0)
+    loss32.backward()
+    t0 = time.perf_counter()
+    gen64 = copy.deepcopy(gen0).cpu().double()
+    sub64 = pipeline.BatchFeatures(*(
+        x.cpu().double() if x.is_floating_point() else x.cpu() for x in sub))
+    loss64 = direct.direct_metric_loss(
+        gen64, sub64, wc[:r].cpu().double(), wn[:r].cpu().double(), cfg,
+        1.0, 1.0)
+    loss64.backward()
+    cpu_s = time.perf_counter() - t0
+    grads64 = dict(gen64.named_parameters())
+    grad_rel = {k: float((p.grad.double().cpu() - grads64[k].grad).norm()
+                         / grads64[k].grad.norm())
+                for k, p in gen.named_parameters()}
+    l32, l64 = loss32.item(), loss64.item()
+    vs_cpu = {"rows": r, "loss": l32, "loss_cpu_f64": l64,
+              "loss_rel": abs(l32 - l64) / abs(l64),
+              "grad_rel_max": max(grad_rel.values()),
+              "grad_rel_max_param": max(grad_rel, key=grad_rel.get),
+              "finite": all(bool(torch.isfinite(p.grad).all())
+                            for p in gen.parameters()),
+              "cpu_f64_s": cpu_s}
+    print(f"direct loss (ESTOI + HASPI + PESQ, weights 1) and gradient, card "
+          f"float32 against CPU float64: {vs_cpu}; bars {DIRECT_LOSS_BAR} "
+          f"(loss), {DIRECT_GRAD_BAR} (each parameter's gradient in norm)")
+    if not (vs_cpu["finite"] and vs_cpu["loss_rel"] <= DIRECT_LOSS_BAR
+            and vs_cpu["grad_rel_max"] <= DIRECT_GRAD_BAR):
+        raise AssertionError(f"direct card vs CPU: {vs_cpu}")
+
+    # 2. twelve ESTOI steps: the loss falls, the real ESTOI rises
+    gen = copy.deepcopy(gen0)
+    opt = torch.optim.Adam(gen.parameters(), lr=cfg.train.lr_g)
+    before = dict(kernels.launches)
+    losses = [float(direct.direct_g_step(gen, opt, feats, wc, wn, cfg))
+              for _ in range(DIRECT_STEPS)]
+    estoi_launches = launch_delta(before)
+    real = {"seeded": real_estoi(gen0, feats, wc, wn, lens, dev),
+            "trained": real_estoi(gen, feats, wc, wn, lens, dev)}
+    print(f"{DIRECT_STEPS} direct ESTOI steps: losses {losses}; real ESTOI "
+          f"(PCM16 enhanced + noise, mean of 7 rows) {real}; launches "
+          f"{estoi_launches}")
+    if not (losses[-1] < losses[0] and real["trained"] > real["seeded"]
+            and not any(estoi_launches.values())):
+        raise AssertionError(f"direct ESTOI steps: {losses}, {real}, "
+                             f"{estoi_launches}")
+
+    # 3-4. step time by term, peak memory, launches per step
+    terms = {}
+    for name, hw, pw in DIRECT_TERMS:
+        gen = copy.deepcopy(gen0)
+        opt = torch.optim.Adam(gen.parameters(), lr=cfg.train.lr_g)
+        calls = [0]
+
+        def step():
+            calls[0] += 1
+            return direct.direct_g_step(gen, opt, feats, wc, wn, cfg, hw, pw)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(kernels.launches)
+        ms = cuda_ms(step, calls=1, samples=DIRECT_TIMED, warmup=1)
+        la = launch_delta(before)
+        want = {k: 0 for k in la}
+        if pw > 0:
+            want["linrec"] = want["linrec_bwd"] = calls[0]
+        terms[name] = {"ms": ms, "steps": calls[0], "launches": la,
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+        if la != want:
+            raise AssertionError(f"direct {name}: launches {la}, expected "
+                                 f"{want}")
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    terms[name]["wall_ms"] = wall_ms
+    terms[name]["profile"] = profile_step(step, wall_ms, reps=1,
+                                          label="direct_step_profile")
+    print(f"direct step by term, batch 8, bucket {BUCKET} (CUDA events, median "
+          f"of {DIRECT_TIMED}): " + "; ".join(
+              f"{k} {v['ms']:.2f} ms, peak {v['peak_bytes'] / 2**30:.2f} GiB"
+              for k, v in terms.items()))
+
+    # 5. one ESTOI + PESQ step under the bf16 policy
+    gen16 = Generator(compute_dtype="bfloat16")
+    gen16.load_state_dict(gen0.state_dict())
+    gen16.to(dev)
+    opt = torch.optim.Adam(gen16.parameters(), lr=cfg.train.lr_g)
+    loss16 = float(direct.direct_g_step(gen16, opt, feats, wc, wn, cfg, 0.0,
+                                        1.0))
+    finite16 = np.isfinite(loss16) and all(
+        bool(torch.isfinite(p.grad).all()) and p.dtype == torch.float32
+        for p in gen16.parameters())
+    print(f"one bf16 direct step (ESTOI + PESQ): loss {loss16}, gradient "
+          f"finite {finite16}")
+    if not finite16:
+        raise AssertionError(f"bf16 direct step: loss {loss16}")
+    torch.cuda.synchronize()
+    res = {"vs_cpu": vs_cpu, "estoi_steps": losses, "real_estoi": real,
+           "terms": terms, "bf16_loss": loss16,
+           "launches": dict(kernels.launches),
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"direct phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -3291,6 +3668,9 @@ def main() -> None:
         inferred = infer_phase(dev, tmp)
         scored = scoring_phase(dev, tmp, inferred)
         trained = trainer_phase(dev, tmp)
+        mixed = mixed_precision_phase(dev, f"{tmp}/trainer_corpus", tmp,
+                                      trained["epochs"])
+    directed = direct_phase(dev)
     for rec in records:
         rec["launches"] = serving["launches"][rec["name"]]
         rec["training_launches"] = training["launches"][rec["name"]]
@@ -3299,10 +3679,12 @@ def main() -> None:
         rec["kernel_phase_launches"] = checked[rec["name"]]
         rec["gradient_launches"] = gradient["launches"][rec["name"]]
         rec["trainer_launches"] = trained["launches"][rec["name"]]
+        rec["mixed_precision_launches"] = mixed["launches"][rec["name"]]
+        rec["direct_launches"] = directed["launches"][rec["name"]]
     # linrec's path is scoring (PESQ's gain memory through cli/infer
-    # --metrics), linrec_bwd's the gradient phase (PESQ's gradient)
+    # --metrics), linrec_bwd's the direct step (PESQ's gradient)
     records[2]["launches"] = scored["launches"]["linrec"]
-    records[3]["launches"] = gradient["launches"]["linrec_bwd"]
+    records[3]["launches"] = directed["launches"]["linrec_bwd"]
     records[0]["training_featurized_batches"] = training["featurized_batches"]
     records[0]["streaming_steps"] = streamed["steps"]
     for rec in records:
@@ -3318,6 +3700,8 @@ def main() -> None:
     print(json.dumps({"scoring": scored}))
     print(json.dumps({"gradient": gradient}))
     print(json.dumps({"trainer": trained}))
+    print(json.dumps({"mixed_precision": mixed}))
+    print(json.dumps({"direct": directed}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

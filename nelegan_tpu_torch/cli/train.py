@@ -10,8 +10,9 @@ Counterpart of `nelegan_tpu/cli/train.py`, with `--device` (default
         [--train-enhanced .../Train/MultiEnh] [--epochs 500] [--resume] \\
         [--device cuda]
 
-`--compute-dtype bfloat16` raises (the models' bfloat16 policy is not
-ported), as does `--data-parallel` with more than one visible GPU.
+`--compute-dtype bfloat16` trains under the models' mixed-precision policy
+(bfloat16 trunks; parameters and checkpoints stay float32).
+`--data-parallel` raises with more than one visible GPU.
 """
 from __future__ import annotations
 
@@ -42,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", default="siib,haspi,estoi,pesq,visqol")
     p.add_argument("--compute-dtype", default="float32",
                    choices=("float32", "bfloat16"),
-                   help="model trunk activation dtype (bfloat16 is not "
-                        "ported and raises)")
+                   help="model trunk activation dtype (bf16 mixed "
+                        "precision; params/checkpoints stay f32)")
     p.add_argument("--data-parallel", action="store_true",
                    help="data parallelism over GPUs (not ported: raises "
                         "with more than one visible GPU)")

@@ -6,7 +6,9 @@ this package uses): the port imports nothing of that package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+import torch
 
 # 64 ERB-scaled band edges over 257 rFFT bins for 16 kHz speech
 # (reference: audio_util.py:23 `gmtband`).  The triangular band pooling it
@@ -79,9 +81,26 @@ class ModelConfig:
     disc_kernels: Tuple[int, ...] = (1, 3, 5, 7, 9)
     n_intel_scores: int = 3           # SIIB, HASPI, ESTOI
     n_quality_scores: int = 2         # PESQ, ViSQOL
-    # Activation dtype of the generator and discriminator trunks.  Only
-    # "float32" is ported; the bfloat16 policy raises (models/).
+    # Mixed-precision policy of the conv/matmul trunks ("float32" or
+    # "bfloat16").  Params, norm statistics, spectral-norm power iteration,
+    # pooling reductions and model outputs always stay float32; the policy
+    # only selects the dtype the trunks' activations are computed and
+    # stored in between their conv layers (`policy_dtype`).
     compute_dtype: str = "float32"
+
+
+_POLICIES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def policy_dtype(compute_dtype: str) -> Optional[torch.dtype]:
+    """The trunks' cast under the mixed-precision policy `compute_dtype`:
+    None for "float32", meaning no cast (float32 stays float32 and a
+    float64 parity run stays float64, as in the reference package), and
+    torch.bfloat16 for "bfloat16"."""
+    if compute_dtype not in _POLICIES:
+        raise ValueError(f"compute_dtype={compute_dtype!r}: the policies "
+                         f"are {sorted(_POLICIES)}")
+    return _POLICIES[compute_dtype]
 
 
 @dataclasses.dataclass(frozen=True)

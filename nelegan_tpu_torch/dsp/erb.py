@@ -55,10 +55,14 @@ def band_synthesis_matrix(n_bins: int = 257, n_bands: int = 64) -> np.ndarray:
 def _matrix(kind: str, n: int, dtype: torch.dtype,
             device: torch.device) -> torch.Tensor:
     """The band matrix as a tensor, built once per (dtype, device); callers
-    only read it."""
+    only read it.  Built outside inference mode whatever the first
+    caller's mode: an inference tensor cannot be saved for a backward, and
+    the cached matrix serves both inference (serving, scoring) and
+    autograd (the direct step's resynthesis)."""
     m = (band_analysis_matrix(n) if kind == "analysis"
          else band_synthesis_matrix(n_bands=n))
-    return torch.as_tensor(m, dtype=dtype, device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(m, dtype=dtype, device=device)
 
 
 def band_energy(mag: torch.Tensor) -> torch.Tensor:

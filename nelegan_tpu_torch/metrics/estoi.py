@@ -109,11 +109,21 @@ def _norm_segments(sig: torch.Tensor, order, kcount, nf: int):
     s = seg - seg.mean(-1, keepdim=True)
     # float64 from the first normalisation on, whatever sig's type, as the
     # reference package computes under x64 (its float64 epsilon promotes)
-    s = s / torch.clamp_min(torch.sqrt((s * s).sum(-1, keepdim=True)),
-                            _EPS).to(torch.float64)
+    s = s / torch.clamp_min(_norm(s, -1), _EPS).to(torch.float64)
     s = s - s.mean(-2, keepdim=True)
-    s = s / torch.clamp_min(torch.sqrt((s * s).sum(-2, keepdim=True)), _EPS)
+    s = s / torch.clamp_min(_norm(s, -2), _EPS)
     return s, seg_valid
+
+
+def _norm(s: torch.Tensor, dim: int) -> torch.Tensor:
+    """The l2 norm of s along `dim` (kept), value-exact, with a zero
+    gradient where it is 0: a segment past the kept frames is constant, and
+    sqrt's infinite derivative there would turn the clamp's zero gradient
+    into NaN, so one padded or silent row would poison a batch's gradient
+    (the reference package's ESTOI has that fault, ROADMAP.md section 3)."""
+    ss = (s * s).sum(dim, keepdim=True)
+    pos = ss > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, ss, 1.0)), 0.0)
 
 
 def _mean_corr(xn, yn, seg_valid) -> torch.Tensor:

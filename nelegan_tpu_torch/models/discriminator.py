@@ -17,6 +17,12 @@ utterance's valid output columns only, ``max(frames - shrink, 1)`` of them
 (shrink = sum(k - 1) = 20), and over the trunk's full output height
 (64 - 20 = 44): a conv output whose receptive field reaches a padded frame
 never enters the mean.
+
+Under a reduced mixed-precision policy (``compute_dtype="bfloat16"``) the
+five trunk convolutions compute in that dtype; the trunk's output is cast
+back to at least float32 before the pool, and the three spectral-norm heads
+run in the parameters' dtype, as the reference package's `SNDense` heads
+(which take no ``dtype``) do.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nelegan_tpu_torch.config import policy_dtype
 from nelegan_tpu_torch.models.spectral_norm import SNConv2d, SNLinear
 
 
@@ -36,14 +43,11 @@ class _Discriminator(nn.Module):
                  kernels: Sequence[int] = (1, 3, 5, 7, 9),
                  leaky_slope: float = 0.3, compute_dtype: str = "float32"):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: only the float32 policy "
-                "is ported; the bfloat16 trunk is not yet")
+        cd = policy_dtype(compute_dtype)
         self.leaky_slope = leaky_slope
         self.shrink = sum(k - 1 for k in kernels)
         ins = [in_ch] + list(channels[:-1])
-        self.layers = nn.ModuleList(SNConv2d(i, o, k)
+        self.layers = nn.ModuleList(SNConv2d(i, o, k, cd)
                                     for i, o, k in zip(ins, channels, kernels))
         self.fc1 = SNLinear(channels[-1], 64)
         self.fc2 = SNLinear(64, 16)
@@ -69,6 +73,8 @@ class _Discriminator(nn.Module):
         every frame valid) -> scores [B, n_scores] in (0, 1)."""
         for layer in self.layers:
             x = F.leaky_relu(layer(x), self.leaky_slope)
+        # the pool's reduction over ~T'*H elements accumulates in >= float32
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if frames is None:
             pooled = x.mean(dim=(2, 3))
         else:

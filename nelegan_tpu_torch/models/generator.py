@@ -13,12 +13,21 @@ loads with `load_state_dict(strict=True)`:
 
 Inside, the trunk runs channels-first [B, C, T]; the public forward keeps
 the band layout [B, T, 64].
+
+Under a reduced mixed-precision policy (``compute_dtype="bfloat16"``) the
+concatenated input, every causal conv and ``fc1``/``fc2`` compute in that
+dtype (input, weight and bias cast, as flax's ``dtype=`` casts them); the
+parameters, the cLN statistics and the output mask stay float32.  The
+casts are explicit, not ``torch.autocast``, so they sit where the reference
+package puts them on every device.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from nelegan_tpu_torch.config import policy_dtype
 
 
 class CumulativeLayerNorm(nn.Module):
@@ -50,23 +59,43 @@ class CumulativeLayerNorm(nn.Module):
 class CausalConv(nn.Module):
     """1-D causal conv on [B, C, T]: output frame t sees inputs t-k+1 .. t.
     The reference's ConvNorm(pad=k-1) + Chomp1d(k-1) (model.py:10-40) as
-    one left-padded conv."""
+    one left-padded conv.  `compute_dtype` (None: no cast) is the dtype
+    the input, weight and bias are cast to; the bias is added after the
+    conv, in that dtype, as flax's `nn.Conv(dtype=...)` adds it."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int,
-                 w_gain: float = 1.0):
+                 w_gain: float = 1.0,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.kernel = kernel
+        self.compute_dtype = compute_dtype
         self.conv = nn.Conv1d(in_ch, out_ch, kernel)
         nn.init.xavier_uniform_(self.conv.weight, gain=w_gain)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (self.kernel - 1, 0)))
+        x = F.pad(x, (self.kernel - 1, 0))
+        cd = self.compute_dtype
+        if cd is None:
+            return self.conv(x)
+        y = F.conv1d(x.to(cd), self.conv.weight.to(cd))
+        return y + self.conv.bias.to(cd)[:, None]
+
+
+def _dense(fc: nn.Linear, x: torch.Tensor,
+           cd: torch.dtype | None) -> torch.Tensor:
+    """`fc(x)`, computed in `cd` (None: no cast) with the bias added after
+    the product, as flax's `nn.Dense(dtype=...)` computes it."""
+    if cd is None:
+        return fc(x)
+    return F.linear(x.to(cd), fc.weight.to(cd)) + fc.bias.to(cd)
 
 
 class Generator(nn.Module):
     """clean/noise band features [B, T, 64] -> per-band energy gain mask
     alpha^2 [B, T, 64] in [exp(-mask_bound), exp(mask_bound)]
-    (reference: model.py:83-98)."""
+    (reference: model.py:83-98).  `compute_dtype` is the mixed-precision
+    policy (`config.policy_dtype`); the mask is float32 (or float64) under
+    every policy."""
 
     def __init__(self, hidden: int = 256, n_bands: int = 64,
                  n_blocks: int = 6, leaky_slope: float = 0.3,
@@ -74,10 +103,7 @@ class Generator(nn.Module):
                  kernel_mid: int = 7, kernel_last: int = 5,
                  compute_dtype: str = "float32"):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: only the float32 policy "
-                "is ported; the bfloat16 trunk is not yet")
+        self.compute_dtype = policy_dtype(compute_dtype)
         self.leaky_slope = leaky_slope
         self.mask_bound = mask_bound
         ins = [2 * n_bands] + [hidden] * (n_blocks - 1)
@@ -86,7 +112,8 @@ class Generator(nn.Module):
         gains = [5.0 / 3.0] * (n_blocks - 1) + [1.0]
         self._gains = gains
         self.convolutions = nn.ModuleList(
-            nn.Sequential(CausalConv(i, o, k, g), nn.Identity(),
+            nn.Sequential(CausalConv(i, o, k, g, self.compute_dtype),
+                          nn.Identity(),
                           CumulativeLayerNorm(o), nn.LeakyReLU(leaky_slope))
             for i, o, k, g in zip(ins, outs, ks, gains))
         self.fc1 = nn.Linear(n_bands, n_bands)
@@ -129,12 +156,15 @@ class Generator(nn.Module):
             fc.bias.zero_()
 
     def forward(self, clean: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
         x = torch.cat([clean, noise], dim=-1).transpose(1, 2)     # [B, 128, T]
+        if cd is not None:
+            x = x.to(cd)
         for block in self.convolutions:
             x = block(x)
         x = x.transpose(1, 2)                                     # [B, T, 64]
-        x = F.leaky_relu(self.fc1(x), self.leaky_slope)
-        x = self.fc2(x)
+        x = F.leaky_relu(_dense(self.fc1, x, cd), self.leaky_slope)
+        x = _dense(self.fc2, x, cd)
         # exp(bound*tanh) in >= float32: the mask feeds beta^2 energy sums
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         return torch.exp(self.mask_bound * torch.tanh(x))

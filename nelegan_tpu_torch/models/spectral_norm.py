@@ -19,6 +19,13 @@ Semantics, as in torch and the reference package:
   * the layer computes with ``weight / sigma``, ``sigma = u . (W v)``, the
     gradient passing through W only (u and v are constants).
 
+Under a reduced mixed-precision policy (`compute_dtype`, e.g.
+torch.bfloat16) the weight, bias, u, v and sigma stay in the parameters'
+dtype (sigma divides the whole kernel, and (u, v) drift would compound
+across steps); only after ``weight / sigma`` are the input, the normalised
+weight and the bias cast to it, the bias added after the product
+(`nelegan_tpu/models/spectral_norm.py:55-109`).
+
 Unlike `torch.nn.utils.spectral_norm` the initial v is ``l2norm(W^T u)``,
 one half step from u, as the reference package initialises it; weights are
 he-uniform and biases zero (`nelegan_tpu/models/spectral_norm.py:75-77`).
@@ -41,8 +48,10 @@ def _l2norm(v: torch.Tensor) -> torch.Tensor:
 class _SpectralNorm(nn.Module):
     """Parameters, buffers and power iteration shared by both layers."""
 
-    def __init__(self, weight_shape: tuple):
+    def __init__(self, weight_shape: tuple,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         out_dim = weight_shape[0]
         in_dim = math.prod(weight_shape[1:])
         self.weight_orig = nn.Parameter(torch.empty(weight_shape))
@@ -86,23 +95,36 @@ class _SpectralNorm(nn.Module):
         sigma = torch.dot(u, wmat @ v)
         return self.weight_orig / sigma
 
+    def _forward_with(self, op, x: torch.Tensor) -> torch.Tensor:
+        """`op(x, w_sn, bias)`; under a reduced policy `op(x, w_sn)` in that
+        dtype, then the bias in it."""
+        w = self.normalized_weight()
+        cd = self.compute_dtype
+        if cd is None:
+            return op(x, w, self.bias)
+        y = op(x.to(cd), w.to(cd))
+        return y + self.bias.to(cd).reshape(-1, *[1] * (y.dim() - 2))
+
 
 class SNConv2d(_SpectralNorm):
     """Conv2d on NCHW input, VALID padding, spectral-normalised weight
-    [out, in, k, k]."""
+    [out, in, k, k], computed in `compute_dtype` (None: no cast)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int):
-        super().__init__((out_ch, in_ch, kernel, kernel))
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__((out_ch, in_ch, kernel, kernel), compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.normalized_weight(), self.bias)
+        return self._forward_with(F.conv2d, x)
 
 
 class SNLinear(_SpectralNorm):
-    """Linear layer (weight [out, in]) with a spectral-normalised weight."""
+    """Linear layer (weight [out, in]) with a spectral-normalised weight,
+    computed in `compute_dtype` (None: no cast)."""
 
-    def __init__(self, in_dim: int, out_dim: int):
-        super().__init__((out_dim, in_dim))
+    def __init__(self, in_dim: int, out_dim: int,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__((out_dim, in_dim), compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.normalized_weight(), self.bias)
+        return self._forward_with(F.linear, x)

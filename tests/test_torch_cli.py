@@ -348,8 +348,9 @@ def test_serve_checkpoint_loads_the_same_generator(jax_ckpt, tmp_path,
 def test_train_cli_equals_its_trainer(corpus, tmp_path):
     """`cli/train --device cpu` for one epoch at the default (full-width)
     model equals, bit for bit, a Trainer built with the config the CLI
-    builds; `--resume` runs epoch 2 from its checkpoint; the bfloat16
-    policy raises.  The corpus serves as training and test set."""
+    builds; `--resume` runs epoch 2 from its checkpoint; with `--compute-dtype
+    bfloat16` it trains an epoch, its parameters float32 and finite.  The
+    corpus serves as training and test set."""
     def args(run):
         return ["--train-clean", str(corpus / "Clean"), "--train-noise",
                 str(corpus / "Noise"), "--test-clean", str(corpus / "Clean"),
@@ -379,5 +380,12 @@ def test_train_cli_equals_its_trainer(corpus, tmp_path):
     resumed = train.main(args(tmp_path / "cli") + ["--epochs", "2",
                                                    "--resume"])
     assert resumed.state.step_g == 1 and len(resumed.history["pesq"]) == 2
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        train.main(args(tmp_path / "bf16") + ["--compute-dtype", "bfloat16"])
+    bf16 = train.main(args(tmp_path / "bf16") + ["--compute-dtype",
+                                                 "bfloat16", "--epochs", "1"])
+    assert bf16.cfg.model.compute_dtype == "bfloat16"
+    assert bf16.state.gen.compute_dtype is torch.bfloat16
+    assert (bf16.state.step_g, bf16.state.step_d) == (0, ref.state.step_d)
+    assert len(bf16.history["pesq"]) == 1
+    for m in ("gen", "d", "dq"):
+        for v in getattr(bf16.state, m).state_dict().values():
+            assert v.dtype == torch.float32 and torch.isfinite(v).all()

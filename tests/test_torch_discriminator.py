@@ -183,7 +183,9 @@ def test_masked_pool_equals_unpadded_runs():
 
 def test_init_and_config():
     """Seeded init: he-uniform weights, zero biases, unit u and
-    v = l2norm(W^T u); from_config takes the widths; bfloat16 raises."""
+    v = l2norm(W^T u); from_config takes the widths; under the bfloat16
+    policy the trunk convolutions compute in bfloat16, the heads do not, and
+    the parameters stay float32."""
     mc = ModelConfig(disc_channels=(4, 8), disc_kernels=(1, 3))
     a = QualityDiscriminator.from_config(mc)
     b = QualityDiscriminator.from_config(mc)
@@ -202,5 +204,8 @@ def test_init_and_config():
         assert abs(float(m.weight_u.norm()) - 1.0) < 1e-6
         v = wmat.t() @ m.weight_u
         torch.testing.assert_close(m.weight_v, v / v.norm())
-    with pytest.raises(NotImplementedError):
-        IntelDiscriminator(compute_dtype="bfloat16")
+    bf16 = IntelDiscriminator(compute_dtype="bfloat16")
+    assert all(m.compute_dtype is torch.bfloat16 for m in bf16.layers)
+    assert all(m.compute_dtype is None for m in (bf16.fc1, bf16.fc2,
+                                                  bf16.fc3))
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())

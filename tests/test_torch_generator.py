@@ -87,5 +87,10 @@ def test_reference_checkpoint_loads_strict(tmp_path):
 
 
 def test_bfloat16_policy_raises():
-    with pytest.raises(NotImplementedError):
-        Generator(compute_dtype="bfloat16")
+    """The bfloat16 policy is ported: it builds, with float32 parameters;
+    any other policy raises."""
+    gen = Generator(compute_dtype="bfloat16")
+    assert gen.compute_dtype is torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in gen.parameters())
+    with pytest.raises(ValueError):
+        Generator(compute_dtype="int8")
