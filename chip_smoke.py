@@ -154,8 +154,9 @@ Phases, in order; any failure raises:
      caches emptied before epoch 3 (state with Adam moments and u/v,
      replay, history, log.txt), and within CACHE_BAR (scores) and
      F32_UPDATE_BAR (state) of the straight run with warm caches; a fourth
-     epoch traced (trace_context) for the device-busy share of g_train and
-     d_train.  At a small config (hidden 32, 2 blocks, batch 4, 8 training
+     epoch profiled (torch.profiler, the device's activity alone) for the
+     device-busy share of g_train and d_train.  At a small config (hidden
+     32, 2 blocks, batch 4, 8 training
      utterances, ESTOI and PESQ): run_with_recovery with a fault injected
      in epoch 2 against a straight run emptied before epoch 2, bit for bit;
      the card against the CPU from the same initial state, the card's D
@@ -189,9 +190,33 @@ Phases, in order; any failure raises:
      its peak memory, one step's busy share; linrec and linrec_bwd once per
      step that weighs PESQ and never otherwise, IMCRA never in the steps;
      one ESTOI + PESQ step under the bfloat16 policy, finite;
- 12. one JSON line per phase, one of kernel records (each with its launches
+ 12. parallel phase (`parallel/`, torch.distributed), float32, TF32 off,
+     deterministic cuDNN: NCCL probed with two ranks on the one card (it
+     refuses: its words are printed); the mesh's collectives (replicate,
+     all-reduce, all-gather) over NCCL in a world of this process alone,
+     each bit-equal to its input; `cli/train --data-parallel` in a
+     torchrun world of one over NCCL against the CLI without it, one after
+     the other (one epoch of the small corpus; log.txt and the checkpoint
+     bit for bit), then two plain CLI runs side by side under torch's
+     deterministic-algorithms check (reported: the open fault of ROADMAP
+     section 3); then two gloo ranks on the card (`parallel.launch`, CUDA
+     tensors staged through the host) train the trainer phase's
+     full-width run for two epochs, their D on the single run's scores,
+     against that phase's straight run of the same epochs: the ranks'
+     states bit-equal after every epoch, names and replay paths equal,
+     epoch-1 PCM16 within 1 LSB, their own scores within SCORE_BARS, G's
+     epoch loss within F32_LOSS_BAR, the D heads' and the state within
+     F32_UPDATE_BAR, epoch 2's pool misses at most the single run's, one
+     all-reduce per optimizer step, IMCRA and linrec once per featurized
+     shard and PESQ chunk on each rank, each rank's PESQ rows fewer than
+     the single run's (scoring sharded); a third epoch profiled for the
+     device-busy shares as the single run's; epoch seconds by phase,
+     utterances/s and
+     all-reduce ms per G and D step per rank, beside the single run's;
+ 13. one JSON line per phase, one of kernel records (each with its launches
      on the serving, training, streaming, infer, scoring, gradient,
-     trainer, mixed-precision and direct paths and in the kernel phase;
+     trainer, mixed-precision and direct paths, per rank on the parallel
+     one, and in the kernel phase;
      `launches` is its own path's: serving for IMCRA and the cascade,
      scoring for linrec, the direct phase for linrec_bwd), the card line
      again, and last `{"ok": true, "device": ...}`.
@@ -202,21 +227,24 @@ import collections
 import copy
 import dataclasses
 import functools
+import glob
 import itertools
 import json
 import multiprocessing
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from nelegan_tpu_torch import kernels, metrics, pipeline, streaming
+from nelegan_tpu_torch import kernels, metrics, parallel, pipeline, streaming
 from nelegan_tpu_torch.cli import infer, stream
 from nelegan_tpu_torch.cli.serve import EnhanceServer, enhance_remote
 from nelegan_tpu_torch.config import Config, ImcraConfig, config_to_dict
@@ -234,10 +262,11 @@ from nelegan_tpu_torch.metrics.siib import (_capacity, _klt, _stack_pair,
                                             siib_prepare)
 from nelegan_tpu_torch.models.generator import Generator
 from nelegan_tpu_torch.ops import cascade, iir
+from nelegan_tpu_torch.parallel import launch
 from nelegan_tpu_torch.train import checkpoint, direct, gan
 from nelegan_tpu_torch.train.loop import Trainer, TrainPaths
+from nelegan_tpu_torch.train.replay import ReplayEntry
 from nelegan_tpu_torch.train.resilience import run_with_recovery
-from nelegan_tpu_torch.utils.profiling import trace_context
 
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "goldens" / "features.npz"
@@ -351,6 +380,9 @@ TRAINER_TRAIN, TRAINER_TEST, TRAINER_EPOCHS = 32, 8, 3
 TRAINER_SMALL_TRAIN, TRAINER_SMALL_TEST = 8, 4
 TRAINER_SMALL_METRICS = ("estoi", "pesq")
 PAPER_SAMPLED, PAPER_VALID, PAPER_EPOCHS = 300, 480, 2
+# Parallel phase: DP_WORLD ranks on the one card train DP_EPOCHS epochs of
+# the trainer phase's full-width run (and a traced one after them)
+DP_WORLD, DP_EPOCHS = 2, 2
 # Mixed-precision phase: the bfloat16 mask against float32 on valid frames
 # within the reference package's bars (tests/test_mixed_precision.py:68-69:
 # mean and max relative difference), both discriminators' scores within
@@ -2814,7 +2846,8 @@ def scoring_phase(dev, tmp: str, inferred: dict) -> dict:
 class Tally:
     """Calls of the functions that launch the trainer's kernels, counted at
     the call sites the loop goes through (`featurize_batch`: one IMCRA
-    launch each; `score_corpus`'s PESQ: one linrec launch a chunk), and
+    launch each; `score_corpus`'s PESQ: one linrec launch a chunk, and the
+    rows it scores, "pesq_rows"), and
     the scoring pool's lookups by signature, caller (score_corpus or the
     loop), whether the keys are files the loop wrote, hit or miss."""
 
@@ -2833,6 +2866,8 @@ class Tally:
 
         def counted(*args, **kw):
             self.calls[key] += 1
+            if key == "pesq":
+                self.calls["pesq_rows"] += args[0].shape[0]
             scoring, self._scoring = self._scoring, (
                 self._scoring or key == "score_corpus")
             try:
@@ -2867,14 +2902,15 @@ class SmokeTrainer(Trainer):
     it: per epoch the kernels' launches (counted from 0 just before the
     epoch and read just after), the featurized batches and PESQ chunks
     (`Tally`), phase seconds, steps and pool telemetry; every D pass's
-    losses; and with `trace_dir` the device-busy share of g_train and
-    d_train (trace_context, torch.profiler)."""
+    losses; and when `traced` the device-busy share of g_train and d_train
+    (torch.profiler of the device's activity alone, the one instrument of
+    the single run and of every rank)."""
 
     tally: Tally = None
 
-    def __init__(self, *args, trace_dir=None, targets=None, **kw):
+    def __init__(self, *args, targets=None, **kw):
         super().__init__(*args, **kw)
-        self.trace_dir = trace_dir
+        self.traced = False
         self.epochs = []
         self.d_losses = []
         self.busy = {}
@@ -2897,9 +2933,12 @@ class SmokeTrainer(Trainer):
         return out
 
     def _traced(self, name, fn, *args):
-        if not self.trace_dir:
+        if not self.traced:
             return fn(*args)
-        with trace_context(f"{self.trace_dir}/{name}") as prof:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA
+                                 if self.dev.type == "cuda"
+                                 else ProfilerActivity.CPU]) as prof:
             t0 = time.perf_counter()
             out = fn(*args)
             if self.dev.type == "cuda":
@@ -2947,7 +2986,7 @@ class SmokeTrainer(Trainer):
                           for k in (0, 1)],
                "d_step_losses": self.d_losses,
                "telemetry": self.telemetry[-1],
-               "traced": bool(self.trace_dir),
+               "traced": self.traced,
                "utterances_per_s": (self.cfg.train.num_sampling
                                     / means["epoch_seconds"])}
         if tally is not None:
@@ -3059,6 +3098,14 @@ def small_config(epochs: int) -> Config:
                       num_valid=TRAINER_SMALL_TEST, gan_epochs=epochs))
 
 
+def trained_config() -> Config:
+    """The trainer phase's full-width config (batch 8, 16 sampled, 8
+    validated an epoch)."""
+    return Config(train=dataclasses.replace(
+        Config().train, batch_size=8, num_sampling=16, num_valid=8,
+        gan_epochs=TRAINER_EPOCHS))
+
+
 def trainer_phase(dev, tmp: str) -> dict:
     """The training loop (`train/loop.py`) on the card; every check raises.
     Full width (Config(), batch 8, 16 sampled and 8 validation utterances
@@ -3093,9 +3140,7 @@ def trainer_checks(dev, tmp: str) -> dict:
     write_trainer_corpus(corpus, TRAINER_TRAIN, TRAINER_TEST, seed=13)
     write_trainer_corpus(small, TRAINER_SMALL_TRAIN, TRAINER_SMALL_TEST,
                          seed=14)
-    cfg = Config(train=dataclasses.replace(
-        Config().train, batch_size=8, num_sampling=16, num_valid=8,
-        gan_epochs=TRAINER_EPOCHS))
+    cfg = trained_config()
 
     def full(run, **kw):
         return SmokeTrainer(trainer_paths(corpus, f"{tmp}/{run}"), cfg,
@@ -3110,7 +3155,7 @@ def trainer_checks(dev, tmp: str) -> dict:
     warm_state = copy.deepcopy(straight.state)
     warm_replay = copy.deepcopy(straight.replay.entries)
     check_epoch_launches(straight, "straight")
-    straight.trace_dir = f"{tmp}/trace"
+    straight.traced = True
     straight.start_epoch = TRAINER_EPOCHS + 1
     straight.run(TRAINER_EPOCHS + 1)
     check_epoch_launches(straight, "traced")
@@ -3129,6 +3174,14 @@ def trainer_checks(dev, tmp: str) -> dict:
     # the reference is the same run with its caches emptied before epoch 3
     ref = full("resume_ref")
     ref.run(TRAINER_EPOCHS - 1)
+    # epochs 1-2 of the straight single-process run, the parallel phase's
+    # reference
+    single = {"state": copy.deepcopy(ref.state), "origin": origin,
+              "replay": copy.deepcopy(ref.replay.entries),
+              "scored": copy.deepcopy(ref.scored),
+              "epochs": [{k: v for k, v in r.items() if k != "d_step_losses"}
+                         for r in ref.epochs],
+              "root": run_roots(ref)[0]}
     resumed_dir = f"{tmp}/resumed"
     shutil.copytree(ref.paths.checkpoints, f"{resumed_dir}/chkpt",
                     symlinks=True)
@@ -3330,7 +3383,7 @@ def trainer_checks(dev, tmp: str) -> dict:
             "raw_enh_lookups": {"_".join(k): v for k, v in written.items()},
             "exact_resume": exact, "warm_pair": warm_pair,
             "drc_pool_vs_none": drc_pool,
-            "recovery": recovery, "card_vs_cpu": vs_cpu}
+            "recovery": recovery, "card_vs_cpu": vs_cpu, "_single": single}
 
 
 # ------------------------------------------------------- mixed precision
@@ -3645,6 +3698,411 @@ def direct_phase(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- parallel
+def nccl_probe_rank(mesh) -> float:
+    """One all-reduce over NCCL (two ranks on one card: NCCL refuses)."""
+    x = torch.ones(1, device=mesh.device)
+    torch.distributed.all_reduce(x)
+    return float(x)
+
+
+class DpSmokeTrainer(SmokeTrainer):
+    """A rank's SmokeTrainer with, per epoch, its collectives (calls and
+    seconds by tag, the mesh timed) and its state's replica digest."""
+
+    def run_epoch(self, epoch):
+        before = {k: tuple(v) for k, v in self.mesh.stats.items()}
+        means = super().run_epoch(epoch)
+        rec = self.epochs[-1]
+        rec["collectives"] = {
+            k: [v[0] - before.get(k, (0, 0.0))[0],
+                v[1] - before.get(k, (0, 0.0))[1]]
+            for k, v in self.mesh.stats.items()}
+        rec["digest"] = parallel.replica_digest(self.state).tolist()
+        return means
+
+
+def nccl_world_of_one(dev) -> dict:
+    """The mesh's collectives over NCCL in a world of this process alone
+    (`launch.world_of_one`): `replicate` of a full-width TrainState, one
+    `all_reduce_sum` of G's 2,093,120 gradients, `all_gather_rows` of a
+    column-major leaf, `assert_replicated`; each result bit-equal to its
+    input (a world of one sums and gathers nothing else), the calls
+    counted and the all-reduce timed (host clock, the device synchronised
+    around it; an NCCL kernel on the card that moves no data between
+    cards)."""
+    state = gan.init_train_state(Config(), 0, dev)
+    want = copy.deepcopy(state)
+    grads = [torch.randn(p.shape, generator=torch.Generator().manual_seed(i))
+             .to(dev) for i, p in enumerate(state.gen.parameters())]
+    leaf = torch.randn(6, 5, device=dev).t()          # column-major
+    with launch.world_of_one("nccl", dev) as mesh:
+        mesh.timed = True
+        parallel.replicate(mesh, state)
+        summed = parallel.all_reduce_sum(mesh, grads, "all_reduce:gen")
+        gathered = parallel.all_gather_rows(mesh, {"x": leaf})["x"]
+        parallel.assert_replicated(mesh, state)
+        stats = {k: list(v) for k, v in mesh.stats.items()}
+        backend = mesh.backend
+    out = {"backend": backend,
+           "state": states_equal(state, want),
+           "all_reduce": all(torch.equal(a, b) for a, b in
+                             zip(summed, grads)),
+           "all_gather": (torch.equal(gathered, leaf)
+                          and gathered.stride() == leaf.stride()),
+           "collectives": {k: v[0] for k, v in stats.items()},
+           "g_all_reduce_ms": 1e3 * stats["all_reduce:gen"][1],
+           "g_all_reduce_mb": sum(g.numel() * 4 for g in grads) / 1e6}
+    if not (backend == "nccl" and out["state"] and out["all_reduce"]
+            and out["all_gather"] and stats["all_reduce:gen"][0] == 1):
+        raise AssertionError(f"NCCL world of one: {out}")
+    return out
+
+
+def dp_trainer_rank(mesh, cfg: Config, corpus: str, run: str,
+                    targets: dict) -> dict:
+    """One rank of the data-parallel trainer: `Trainer(data_parallel=True)`
+    over the world `parallel.launch` made, float32, TF32 off,
+    deterministic cuDNN (set here: a spawned process inherits neither);
+    its D on `targets`, the single run's scores (its own computed beside
+    them).  Epochs 1-DP_EPOCHS, then one more traced for the busy shares,
+    on its own scores."""
+    disable_tf32()
+    torch.backends.cudnn.deterministic = True
+    SmokeTrainer.tally = tally = Tally()
+    try:
+        t = DpSmokeTrainer(trainer_paths(corpus, run), cfg,
+                           metric_set=SCORE_METRICS, data_parallel=True,
+                           device=mesh.device, targets=targets)
+        if t.mesh is None or t.mesh.world != mesh.world:
+            raise AssertionError("the dp trainer built no mesh")
+        t.mesh.timed = True
+        t.run(DP_EPOCHS)
+        # the traced epoch trains on its own scores
+        t.targets = None
+        t.traced = True
+        t.start_epoch = DP_EPOCHS + 1
+        t.run(DP_EPOCHS + 1)
+    finally:
+        tally.restore()
+        SmokeTrainer.tally = None
+    return {"rank": mesh.rank,
+            "epochs": [{k: v for k, v in r.items() if k != "d_step_losses"}
+                       for r in t.epochs],
+            "scored": t.scored, "busy": t.busy,
+            "replay": replay_rows(t.replay.entries, run_roots(t)),
+            "history": t.history}
+
+
+def step_collective_ms(rec: dict) -> dict:
+    """Per epoch record: all-reduces per G step and per D step, and their
+    milliseconds (host clock, the device synchronised around each)."""
+    c = rec["collectives"]
+    g = c.get("all_reduce:gen", [0, 0.0])
+    d = [sum(c.get(k, [0, 0.0])[i] for k in ("all_reduce:d",
+                                               "all_reduce:dq"))
+         for i in (0, 1)]
+    return {"g_steps": rec["g_steps"], "d_steps": rec["d_steps"],
+            "g_all_reduces": g[0], "d_all_reduces": d[0],
+            "g_all_reduce_ms": 1e3 * g[1] / max(rec["g_steps"], 1),
+            "d_all_reduce_ms": 1e3 * d[1] / max(rec["d_steps"], 1),
+            "gather_ms": 1e3 * sum(v[1] for k, v in c.items()
+                                   if k.startswith("all_gather")),
+            "gathers": sum(v[0] for k, v in c.items()
+                           if k.startswith("all_gather"))}
+
+
+# the CLI with torch's check for operations that have no deterministic
+# implementation on, warning and not raising: argv as the CLI's own
+DETERMINISM_PROBE = (
+    "import runpy, torch; "
+    "torch.use_deterministic_algorithms(True, warn_only=True); "
+    "runpy.run_module('nelegan_tpu_torch.cli.train', run_name='__main__')")
+
+
+def cli_checkpoint(run: str) -> tuple:
+    """(state, key, epoch, replay json, extra) of a CLI run's checkpoint."""
+    template = gan.init_train_state(Config(), 0, "cpu")
+    return checkpoint.load_checkpoint_full(f"{run}/chkpt", template)
+
+
+def cli_world_of_one(tmp: str, corpus: str, device: str = "cuda") -> dict:
+    """`cli/train --data-parallel` under `torch.distributed.run
+    --standalone --nproc-per-node 1` (NCCL) and the same CLI without it,
+    one after the other, one epoch of the trainer phase's small corpus
+    (its batch, samples, validation and metrics; the CLI's model is full
+    width) on `device`: log.txt, the checkpoint's state, key, replay and
+    history bit for bit.  A world of one trains single-device, as the
+    reference package does on one device: no collective runs in it.
+    Then the open fault (ROADMAP section 3): run side by side, two such
+    runs once differed in their state.  Two runs of the plain CLI side by
+    side under torch's deterministic-algorithms check (warn only): whether
+    their checkpoints agree bit for bit, and the operations torch names as
+    having no deterministic implementation (reported, not gated)."""
+    def args(run):
+        return ["--train-clean", f"{corpus}/Train/Clean",
+                "--train-noise", f"{corpus}/Train/Noise",
+                "--test-clean", f"{corpus}/Test/Clean",
+                "--test-noise", f"{corpus}/Test/Noise",
+                "--epochs", "1", "--batch-size", "4", "--num-sampling", "8",
+                "--num-valid", str(TRAINER_SMALL_TEST),
+                "--metrics", ",".join(TRAINER_SMALL_METRICS),
+                "--device", device, "--output", f"{run}/output",
+                "--checkpoints", f"{run}/chkpt", "--log-file",
+                f"{run}/log.txt"]
+    dp, plain = f"{tmp}/cli_dp", f"{tmp}/cli_plain"
+    cmds = {"dp": [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc-per-node", "1", "-m",
+                   "nelegan_tpu_torch.cli.train", "--data-parallel",
+                   *args(dp)],
+            "plain": [sys.executable, "-m", "nelegan_tpu_torch.cli.train",
+                      *args(plain)]}
+    seconds = {}
+    for k, cmd in cmds.items():
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=600)
+        seconds[k] = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"cli/train ({k}) exited {out.returncode}:"
+                                 f"\n{(out.stdout + out.stderr)[-4000:]}")
+    (sa, ka, ea, ra, xa), (sb, kb, eb, rb, xb) = (cli_checkpoint(dp),
+                                                  cli_checkpoint(plain))
+    with open(f"{dp}/log.txt") as f, open(f"{plain}/log.txt") as g:
+        log_equal = f.read() == g.read()
+    return {"log": log_equal, "state": states_equal(sa, sb),
+            "key": torch.equal(ka.get_state(), kb.get_state()),
+            "epoch": ea == eb == 1,
+            "replay": ra.replace(dp, "") == rb.replace(plain, ""),
+            "history": xa["history"] == xb["history"],
+            "history_max_diff": max(
+                (abs(a - b) for m in xb["history"]
+                 for a, b in zip(xa["history"][m], xb["history"][m])),
+                default=0.0),
+            "seconds": seconds,
+            "side_by_side": cli_side_by_side(tmp, args)}
+
+
+def cli_side_by_side(tmp: str, args) -> dict:
+    """Two plain cli/train runs at once under DETERMINISM_PROBE."""
+    runs = [f"{tmp}/cli_pair{i}" for i in (0, 1)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in runs:
+            os.makedirs(r, exist_ok=True)
+            with open(f"{r}/console.txt", "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-W", "default", "-c",
+                     DETERMINISM_PROBE, *args(r)], cwd=REPO, stdout=out,
+                    stderr=subprocess.STDOUT))
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    outs = []
+    for r in runs:
+        with open(f"{r}/console.txt") as f:
+            outs.append(f.read())
+    for code, o in zip(codes, outs):
+        if code != 0:
+            raise AssertionError(f"cli/train side by side exited {code}:"
+                                 f"\n{o[-4000:]}")
+    named = sorted({ln.split("UserWarning:", 1)[1].strip()[:200]
+                    for o in outs for ln in o.splitlines()
+                    if "UserWarning:" in ln and "determinis" in ln})
+    (sa, ka, _, ra, xa), (sb, kb, _, rb, xb) = map(cli_checkpoint, runs)
+    return {"state": states_equal(sa, sb),
+            "key": torch.equal(ka.get_state(), kb.get_state()),
+            "replay": ra.replace(runs[0], "") == rb.replace(runs[1], ""),
+            "history": xa["history"] == xb["history"],
+            "nondeterministic_ops": named, "seconds": seconds}
+
+
+def nccl_refusal(dev) -> dict:
+    """NCCL with DP_WORLD ranks on the one card: whether it refused, in its
+    own words (the last line of the error)."""
+    t0 = time.perf_counter()
+    try:
+        launch.run(nccl_probe_rank, DP_WORLD, "nccl",
+                   devices=[dev] * DP_WORLD, timeout=120)
+        out = {"refused": False}
+    except (RuntimeError, TimeoutError) as e:
+        lines = [ln for ln in str(e).splitlines() if ln.strip()]
+        out = {"refused": True, "message": lines[-1][:400]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_phase(dev, tmp: str, single: dict) -> dict:
+    """Data parallelism over torch.distributed (`parallel/`), float32,
+    TF32 off, deterministic cuDNN; every check raises.
+    (a) Two ranks on the one card through `parallel.launch` over gloo
+    (CUDA tensors staged through the host; NCCL, tried first, refuses two
+    ranks on one device), the trainer phase's full-width Trainer for
+    DP_EPOCHS epochs, its D on the single run's scores, against that
+    phase's straight single-process run of the same epochs (`single`):
+    the ranks' states bit-equal after every epoch (their digests), the
+    names, replay paths and epoch-1 enhanced PCM16 within 1 LSB, the
+    scores within SCORE_BARS, G's epoch loss within F32_LOSS_BAR, the D
+    heads' epoch losses and the state within F32_UPDATE_BAR, epoch 2's
+    pool misses at most the single run's, one all-reduce per optimizer
+    step, IMCRA and linrec once per featurized shard and PESQ chunk on
+    each rank, each rank's PESQ rows fewer than the single run's in every
+    epoch (it scores its share of each chunk) and its linrec launches no
+    more; a third epoch profiled for the busy shares, as the single run's.
+    (b), first: the mesh's collectives over NCCL in a world of one
+    (`nccl_world_of_one`), and `cli/train --data-parallel` in a torchrun
+    world of one over NCCL against the CLI without it
+    (`cli_world_of_one`)."""
+    t_phase = time.perf_counter()
+    kernels.build()             # built before the ranks start: no race
+    nccl = nccl_refusal(dev)
+    print(f"NCCL, {DP_WORLD} ranks on one card: {nccl}")
+    nccl_one = nccl_world_of_one(dev)
+    print(f"the mesh's collectives over NCCL, a world of one: {nccl_one}")
+    cli = cli_world_of_one(tmp, f"{tmp}/trainer_small", dev.type)
+    print(f"cli/train --data-parallel, a torchrun world of one (NCCL), "
+          f"against the CLI without it: {cli}")
+    if not all(cli[k] for k in ("log", "state", "key", "epoch", "replay",
+                                "history")):
+        raise AssertionError(f"cli world of one: {cli}")
+
+    corpus = f"{tmp}/trainer_corpus"
+    t0 = time.perf_counter()
+    ranks = launch.run(
+        dp_trainer_rank, DP_WORLD, "gloo",
+        args=(trained_config(), corpus, f"{tmp}/dp", single["scored"]),
+        devices=[dev] * DP_WORLD, timeout=600)
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:             # IMCRA and linrec, every rank and epoch
+        check_epoch_launches(types.SimpleNamespace(
+            epochs=r["epochs"], metric_set=SCORE_METRICS),
+            f"dp rank {r['rank']}")
+    # each rank scores its share of the files: fewer PESQ rows than the
+    # single run in every epoch, no more linrec launches
+    share = {e["epoch"]: {"single": (e["calls"].get("pesq_rows", 0),
+                                     e["launches"]["linrec"])}
+             for e in single["epochs"]}
+    for r in ranks:
+        for rec in r["epochs"][:DP_EPOCHS]:
+            share[rec["epoch"]][f"rank{r['rank']}"] = (
+                rec["calls"].get("pesq_rows", 0), rec["launches"]["linrec"])
+    print(f"PESQ rows and linrec launches by epoch, single run and ranks: "
+          f"{share}")
+    for by in share.values():
+        rows, launches = by["single"]
+        if any(k != "single" and not (0 < v[0] < rows and v[1] <= launches)
+               for k, v in by.items()):
+            raise AssertionError(f"dp: a rank did not score its share: "
+                                 f"{share}")
+    # the ranks' states bit-equal after every epoch
+    digests = [[rec["digest"] for rec in r["epochs"]] for r in ranks]
+    if any(d != digests[0] for d in digests) or len(digests[0]) != (
+            DP_EPOCHS + 1):
+        raise AssertionError(f"dp: the ranks' states differ: {digests}")
+    if any(r["replay"] != r0["replay"] or r["history"] != r0["history"]
+           for r in ranks):
+        raise AssertionError("dp: the ranks' replay or history differ")
+    # one all-reduce per optimizer step, every rank and epoch
+    per_step = [[step_collective_ms(rec) for rec in r["epochs"]]
+                for r in ranks]
+    for rank in per_step:
+        for c in rank:
+            if (c["g_all_reduces"] != c["g_steps"]
+                    or c["d_all_reduces"] != 2 * c["d_steps"]):
+                raise AssertionError(f"dp: all-reduces per step: {c}")
+    # against the single run after epoch 2: rank 0's checkpoint
+    dp_state, _, epoch, replay_json, _ = checkpoint.load_checkpoint_full(
+        f"{tmp}/dp/chkpt/chkpt_{DP_EPOCHS}.ptstate",
+        copy.deepcopy(single["state"]))
+    roots = [f"{tmp}/dp/", single["root"]]
+    dp_replay = [ReplayEntry(**e) for e in json.loads(replay_json)]
+    names = [r[:2] for r in replay_rows(dp_replay, roots)] == [
+        r[:2] for r in replay_rows(single["replay"], roots)]
+    if not names or epoch != DP_EPOCHS:
+        raise AssertionError("dp: names or replay paths differ from the "
+                             "single run")
+    # the dp run's own scores of every file both runs scored (its D and
+    # history took the single run's, as the card-vs-CPU check does)
+    scores = {m: max(abs(r0["scored"][k][m] - v[m]) / max(abs(v[m]), 1.0)
+                     for k, v in single["scored"].items()
+                     if k in r0["scored"])
+              for m in SCORE_METRICS}
+    lsb, files, differ = 0, 0, 0
+    for f in sorted(glob.glob(f"{tmp}/dp/output/**/*@1.wav",
+                              recursive=True)):
+        rel = os.path.relpath(f, f"{tmp}/dp")
+        a = read_wav(f)[0]
+        b = read_wav(os.path.join(single["root"], rel))[0]
+        if a.shape != b.shape:
+            raise AssertionError(f"dp: {rel} has another length")
+        d = np.abs(np.round((a - b) * 32768))
+        lsb, differ = max(lsb, int(d.max())), differ + int((d > 0).sum())
+        files += 1
+    ep = {rec["epoch"]: rec for rec in r0["epochs"]}
+    sp = {rec["epoch"]: rec for rec in single["epochs"]}
+
+    def rel(a, b):
+        return abs(a - b) / abs(b) if b else abs(a)
+    vs_single = {
+        "files_epoch1": files, "pcm16_lsb": lsb, "samples_off": differ,
+        "scores": scores,
+        "g_loss_rel": rel(ep[2]["g_loss"], sp[2]["g_loss"]),
+        "d_epoch_loss_rel": max(rel(ep[e]["d_loss"][k], sp[e]["d_loss"][k])
+                                for e in (1, 2) for k in (0, 1)),
+        "state": state_errors(dp_state, single["state"], single["origin"])}
+    misses = {}
+    for pool in ("band_pool_misses", "clean_pool_misses"):
+        d1 = ep[2]["telemetry"][pool] - ep[1]["telemetry"][pool]
+        s1 = sp[2]["telemetry"][pool] - sp[1]["telemetry"][pool]
+        misses[pool] = {"dp": d1, "single": s1}
+    vs_single["epoch2_misses"] = misses
+    print(f"dp, {DP_WORLD} gloo ranks on one card, against the single run "
+          f"(epochs 1-{DP_EPOCHS}): {vs_single}; bars {SCORE_BARS}, "
+          f"F32_LOSS_BAR {F32_LOSS_BAR} (G), F32_UPDATE_BAR "
+          f"{F32_UPDATE_BAR} (D losses, state)")
+    if not (files > 0 and lsb <= 1
+            and all(scores[m] < SCORE_BARS[m] for m in scores)
+            and vs_single["g_loss_rel"] <= F32_LOSS_BAR
+            and vs_single["d_epoch_loss_rel"] <= F32_UPDATE_BAR
+            and vs_single["state"]["update_rel"] <= F32_UPDATE_BAR
+            and all(v["dp"] <= v["single"] for v in misses.values())):
+        raise AssertionError(f"dp against the single run: {vs_single}")
+
+    # per rank and single: seconds by phase, utterances/s, all-reduce ms
+    timing = {"single": [{"epoch": r["epoch"], "epoch_seconds":
+                          r["epoch_seconds"], "phases_s": r["phases_s"],
+                          "utterances_per_s": r["utterances_per_s"]}
+                         for r in single["epochs"]]}
+    for r, steps in zip(ranks, per_step):
+        timing[f"rank{r['rank']}"] = [
+            {"epoch": rec["epoch"], "epoch_seconds": rec["epoch_seconds"],
+             "phases_s": rec["phases_s"],
+             "utterances_per_s": rec["utterances_per_s"],
+             "launches": rec["launches"], "collectives": c}
+            for rec, c in zip(r["epochs"], steps)]
+        timing[f"rank{r['rank']}_busy_epoch{DP_EPOCHS + 1}"] = r["busy"]
+    print(f"dp timing per rank and for the single run: "
+          f"{json.dumps(timing)}")
+
+    res = {"nccl_two_ranks_one_card": nccl, "nccl_world_of_one": nccl_one,
+           "scoring_share": share, "world_seconds": world_s,
+           "vs_single": vs_single, "timing": timing, "cli_world_of_one": cli,
+           "launches_per_rank": [{k: sum(rec["launches"][k]
+                                         for rec in r["epochs"]
+                                         if rec["epoch"] <= DP_EPOCHS)
+                                  for k in kernels.launches}
+                                 for r in ranks],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"parallel phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -3668,9 +4126,11 @@ def main() -> None:
         inferred = infer_phase(dev, tmp)
         scored = scoring_phase(dev, tmp, inferred)
         trained = trainer_phase(dev, tmp)
+        single = trained.pop("_single")
         mixed = mixed_precision_phase(dev, f"{tmp}/trainer_corpus", tmp,
                                       trained["epochs"])
-    directed = direct_phase(dev)
+        directed = direct_phase(dev)
+        paralleled = parallel_phase(dev, tmp, single)
     for rec in records:
         rec["launches"] = serving["launches"][rec["name"]]
         rec["training_launches"] = training["launches"][rec["name"]]
@@ -3681,6 +4141,8 @@ def main() -> None:
         rec["trainer_launches"] = trained["launches"][rec["name"]]
         rec["mixed_precision_launches"] = mixed["launches"][rec["name"]]
         rec["direct_launches"] = directed["launches"][rec["name"]]
+        rec["parallel_launches_per_rank"] = [
+            r[rec["name"]] for r in paralleled["launches_per_rank"]]
     # linrec's path is scoring (PESQ's gain memory through cli/infer
     # --metrics), linrec_bwd's the direct step (PESQ's gradient)
     records[2]["launches"] = scored["launches"]["linrec"]
@@ -3702,6 +4164,7 @@ def main() -> None:
     print(json.dumps({"trainer": trained}))
     print(json.dumps({"mixed_precision": mixed}))
     print(json.dumps({"direct": directed}))
+    print(json.dumps({"parallel": paralleled}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

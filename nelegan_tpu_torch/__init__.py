@@ -22,8 +22,10 @@ the same path there:
               bucketed corpus loading
   train/      the GAN training steps, exact-resume checkpoints (also
               reading the reference package's .msgpack files), replay
+  parallel/   data parallelism over torch.distributed: the mesh and its
+              collectives, local worlds of spawned ranks
   cli/        serve (dynamic-batching server), infer (corpus, scoring),
-              stream, export_torch
+              stream, export_torch, train (also under torchrun)
   kernels/    nvcc build, ctypes binding and launch counts of csrc/*.cu
 
 It imports torch, numpy and scipy only; nothing of the reference package,

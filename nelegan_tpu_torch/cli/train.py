@@ -12,11 +12,24 @@ Counterpart of `nelegan_tpu/cli/train.py`, with `--device` (default
 
 `--compute-dtype bfloat16` trains under the models' mixed-precision policy
 (bfloat16 trunks; parameters and checkpoints stay float32).
-`--data-parallel` raises with more than one visible GPU.
+
+Data parallelism: one process a GPU, started by torchrun, each rank
+training on its rows of every batch (`parallel/mesh.py`):
+
+    torchrun --nproc-per-node 4 -m nelegan_tpu_torch.cli.train \
+        --data-parallel ...        # or python -m torch.distributed.run
+
+Each rank joins the world from torchrun's environment, on CUDA device
+LOCAL_RANK over NCCL (`--device cpu`: gloo); a backend that cannot start
+fails the rank.  Only rank 0 writes the run's files.  `--data-parallel`
+without torchrun trains on one device, and raises with more than one GPU
+visible.  Every run sets deterministic cuDNN (and TF32 off), so that a
+resumed run continues bit for bit.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,8 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model trunk activation dtype (bf16 mixed "
                         "precision; params/checkpoints stay f32)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="data parallelism over GPUs (not ported: raises "
-                        "with more than one visible GPU)")
+                   help="data parallelism over the ranks of a torchrun "
+                        "world (torchrun --nproc-per-node N -m "
+                        "nelegan_tpu_torch.cli.train --data-parallel ...)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint")
     p.add_argument("--max-retries", type=int, default=0,
@@ -63,16 +77,48 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def join_world(device: str):
+    """Join the torchrun world this process was started in (its env://
+    variables) -> this rank's device: CUDA device LOCAL_RANK over NCCL, or
+    with a CPU `device` the CPU over gloo.  No fallback: a backend that
+    cannot start raises."""
+    import torch
+    import torch.distributed as dist
+
+    from nelegan_tpu_torch.device import resolve_device
+    from nelegan_tpu_torch.parallel.mesh import local_cuda_device
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = resolve_device(local_cuda_device())
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return dev
+
+
 def main(argv=None):
     """Runs the CLI; returns the trainer of the last attempt."""
     args = build_parser().parse_args(argv)
+
+    import torch
+    import torch.distributed as dist
 
     from nelegan_tpu_torch.config import Config, ModelConfig, TrainConfig
     from nelegan_tpu_torch.device import disable_tf32, resolve_device
     from nelegan_tpu_torch.train.loop import Trainer, TrainPaths
 
-    device = resolve_device(args.device)
+    world = args.data_parallel and "WORLD_SIZE" in os.environ
+    if world and args.max_retries > 0:
+        raise SystemExit(
+            "--max-retries rebuilds one process's trainer and cannot "
+            "rebuild a torchrun world; restart the world instead "
+            "(torchrun --max-restarts with --resume)")
+    device = join_world(args.device) if world else resolve_device(args.device)
+    # per process: spawned or torchrun ranks do not inherit them
     disable_tf32()
+    torch.backends.cudnn.deterministic = True
     cfg = Config(train=TrainConfig(
         gan_epochs=args.epochs, num_sampling=args.num_sampling,
         num_valid=args.num_valid, batch_size=args.batch_size,
@@ -106,8 +152,12 @@ def main(argv=None):
         return run_with_recovery(make_trainer, args.epochs,
                                  max_retries=args.max_retries,
                                  verbose_timing=args.verbose_timing)
-    trainer = make_trainer()
-    trainer.run(args.epochs, verbose_timing=args.verbose_timing)
+    try:
+        trainer = make_trainer()
+        trainer.run(args.epochs, verbose_timing=args.verbose_timing)
+    finally:
+        if world:
+            dist.destroy_process_group()
     return trainer
 
 

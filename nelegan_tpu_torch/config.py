@@ -137,6 +137,14 @@ class MetricCalibration:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The mesh's axis names: data (the utterance batch) and model (channel
+    sharding of the discriminator trunk, not ported: parallel/mesh.py)."""
+    data_axis: str = "data"
+    model_axis: str = "model"
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     stft: StftConfig = dataclasses.field(default_factory=StftConfig)
     band: BandConfig = dataclasses.field(default_factory=BandConfig)
@@ -145,6 +153,8 @@ class Config:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     calib: MetricCalibration = dataclasses.field(
         default_factory=MetricCalibration)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
 
 
 def config_to_dict(cfg: Config) -> dict:
@@ -154,9 +164,9 @@ def config_to_dict(cfg: Config) -> dict:
 
 
 def config_from_dict(d: dict) -> Config:
-    """Inverse of `config_to_dict`.  Unknown sections and keys (a newer
-    writer, or the reference package's `parallel` section) are ignored;
-    missing keys keep their defaults."""
+    """Inverse of `config_to_dict`, also of the reference package's dicts.
+    Unknown sections and keys (a newer writer) are ignored; missing keys
+    keep their defaults."""
     def build(cls, sub):
         kw = {}
         for f in dataclasses.fields(cls):
@@ -171,4 +181,5 @@ def config_from_dict(d: dict) -> Config:
                   imcra=build(ImcraConfig, d.get("imcra")),
                   model=build(ModelConfig, d.get("model")),
                   train=build(TrainConfig, d.get("train")),
-                  calib=build(MetricCalibration, d.get("calib")))
+                  calib=build(MetricCalibration, d.get("calib")),
+                  parallel=build(ParallelConfig, d.get("parallel")))

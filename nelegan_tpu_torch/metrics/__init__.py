@@ -12,10 +12,10 @@ hears both), the quality metrics (PESQ, ViSQOL) clean with enhanced, and
 
 `score_corpus` caches clean-side halves in a plain mapping (per chunk
 composition) or a `CleanSidePool` (per utterance, with the raw clean and
-noise rows and, through `enhanced_keys`, PCM16 enhanced rows).  Scoring
-over a mesh raises and names the ROADMAP item that ports it.  What the
-reference package does only for its remote-device tunnel (timing probes,
-power-of-two row padding) changes no score and is not here.
+noise rows and, through `enhanced_keys`, PCM16 enhanced rows), and scores
+over a data-parallel `parallel.Mesh`, each rank its rows of every chunk.
+What the reference package does only for its remote-device tunnel (timing
+probes, power-of-two row padding) changes no score and is not here.
 """
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ from nelegan_tpu_torch.metrics.siib import (
     siib_klt_16k)
 from nelegan_tpu_torch.metrics.visqol import (  # noqa: F401
     visqol_speech, visqol_speech_16k)
+from nelegan_tpu_torch.parallel.mesh import all_gather_rows
 
 # The reference package's call-site names for the quality metrics (the
 # reference scores them with pypesq and the ViSQOL binary).
@@ -50,8 +51,9 @@ visqol_proxy = visqol_speech
 visqol_proxy_16k = visqol_speech_16k
 
 ALL_METRICS = ("siib", "haspi", "estoi", "pesq", "visqol")
-ROADMAP_ITEM = ("ROADMAP.md, Open items, section 1, item 4: data "
-                "parallelism across GPUs with torch.distributed")
+ROADMAP_ITEM = ("ROADMAP.md, Open items, section 1, item 6: tensor "
+                "parallelism of the discriminator trunk (the mesh's model "
+                "axis)")
 # the longest tiled SIIB row (~131 s): one mostly silent utterance would
 # otherwise size every row of its chunk
 MAX_TILED = 2_097_152
@@ -191,15 +193,23 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
         content, e.g. its file) and PCM16 signals it keeps the enhanced
         rows too ("raw-enh", int16), masked to `n_valid` on the device.  The
         SIIB tiling decisions go to its `chunk_cache`.
+
+    With a data-parallel `mesh` (`parallel.make_mesh`) every rank passes
+    the whole corpus, as the reference package's mesh path takes it: a
+    chunk is `vmap_chunk * world` utterances wide, padded to a multiple of
+    the world by repeating its last row, and each rank scores its rows of
+    it (the pool's or the mapping's entries too; a mapping keys the rank's
+    values by the whole chunk).  The scores are all-gathered in one
+    collective, so every rank returns the whole list in input order.
     """
     _check_metrics(metrics)
-    if mesh is not None:
-        raise not_ported("score_corpus over a mesh (torch.distributed)")
     pool = clean_cache if hasattr(clean_cache, "ensure") else None
     if pool is not None and clean_keys is None:
         raise ValueError("a CleanSidePool clean_cache needs clean_keys")
     assert fs == 16000
-    dev = resolve_device(device)
+    dev = (mesh.device if mesh is not None and device is None
+           else resolve_device(device))
+    world = 1 if mesh is None else mesh.world
     n_utts = len(clean_list)
     lens = [min(len(c), len(n), len(e)) for c, n, e in
             zip(clean_list, noise_list, enhanced_list)]
@@ -217,25 +227,29 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
     # the mapping that holds host-side values (the SIIB tiling decision)
     host_cache = pool.chunk_cache if pool is not None else clean_cache
 
+    width = vmap_chunk * world
     buckets: Dict[int, list] = {}
     for i, ln in enumerate(lens):
         buckets.setdefault(-(-ln // bucket_quant) * bucket_quant, []).append(i)
     chunked = []
     for blen, idxs in buckets.items():
-        for i in range(0, len(idxs), vmap_chunk):
-            chunk = idxs[i:i + vmap_chunk]
-            if len(chunk) < vmap_chunk and len(idxs) >= vmap_chunk:
-                chunk = idxs[-vmap_chunk:]     # full-width tail (recompute)
-            chunked.append((blen, chunk))
+        for i in range(0, len(idxs), width):
+            chunk = idxs[i:i + width]
+            if len(chunk) < width and len(idxs) >= width:
+                chunk = idxs[-width:]          # full-width tail (recompute)
+            # a multiple of the world: the last row scored again
+            chunked.append((blen, chunk + chunk[-1:] * (-len(chunk) % world)))
 
     pending = []
-    for blen, idxs in chunked:
+    for blen, rows_i in chunked:
+        # this rank's rows of the chunk (all of them without a mesh)
+        idxs = rows_i if mesh is None else rows_i[mesh.rows(len(rows_i))]
         nv_h = np.array([lens[i] for i in idxs], np.int64)
         nv = torch.as_tensor(nv_h, device=dev)
         row_keys = key_tuple = None
         if clean_cache is not None and clean_keys is not None:
-            row_keys = [(clean_keys[i], int(nv_h[j]))
-                        for j, i in enumerate(idxs)]
+            # the whole chunk's keys, the same on every rank
+            row_keys = [(clean_keys[i], lens[i]) for i in rows_i]
             key_tuple = (blen,) + tuple(row_keys)
 
         def pack_raw(src_list):
@@ -258,8 +272,8 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
             # device-resident enhanced rows, keyed by content (no n_valid
             # in the key): the mask to n_valid gives the zero-padded pack
             enh_rows = pool.ensure(("raw-enh", blen),
-                                   [(enhanced_keys[i],) for i in idxs],
-                                   lambda: pack_raw(enhanced_list))
+                                   [(enhanced_keys[i],) for i in rows_i],
+                                   lambda: pack_raw(enhanced_list), mesh)
             enh = decode(enh_rows) * (
                 torch.arange(blen, device=dev)[None, :]
                 < nv[:, None]).to(tdtype)
@@ -267,9 +281,9 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
             enh = pack(enhanced_list)
         if pool is not None and pool_raw_signals:
             ref = pool.ensure(("raw-ref", blen), row_keys,
-                              lambda: pack(clean_list))
+                              lambda: pack(clean_list), mesh)
             noz = pool.ensure(("raw-noz", blen), row_keys,
-                              lambda: pack(noise_list))
+                              lambda: pack(noise_list), mesh)
         else:
             ref, noz = pack(clean_list), pack(noise_list)
         ne = noz + enh
@@ -277,7 +291,8 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
         def cached(name, shape_sig, compute):
             """A clean-side entry through the active cache form."""
             if pool is not None:
-                return pool.ensure((name,) + shape_sig, row_keys, compute)
+                return pool.ensure((name,) + shape_sig, row_keys, compute,
+                                   mesh)
             k = (name,) + key_tuple
             v = clean_cache.get(k)
             if v is None:
@@ -310,39 +325,48 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
         if "visqol" in metrics:
             out["visqol"] = visqol_proxy_16k(ref, enh, nv)
         if "siib" in metrics:
-            sv_h = np.zeros(len(idxs), np.int64)
-            for j, i in enumerate(idxs):
+            # the tiling decided for the whole chunk, so that its tiled
+            # bucket is the one an unsharded call takes
+            sv_all = {}
+            for i in rows_i:
                 ck = (None if row_keys is None
-                      else ("siib-vad",) + row_keys[j])
+                      else ("siib-vad", clean_keys[i], lens[i]))
                 svj = host_cache.get(ck) if ck is not None else None
                 if svj is None:
                     svj = siib_tiled_length(np.asarray(
-                        clean_list[i][:nv_h[j]]), fs)
+                        clean_list[i][:lens[i]]), fs)
                     if ck is not None:
                         host_cache[ck] = svj
-                sv_h[j] = svj
-            sb = -(-int(sv_h.max()) // bucket_quant) * bucket_quant
-            sv = torch.as_tensor(sv_h, device=dev)
+                sv_all[i] = svj
+            sb = -(-max(sv_all.values()) // bucket_quant) * bucket_quant
+            sv = torch.as_tensor(np.array([sv_all[i] for i in idxs],
+                                          np.int64), device=dev)
             ref_t, ne_t = _tile(ref, nv, sv, sb), _tile(ne, nv, sv, sb)
             if key_tuple is None:
                 out["siib"] = siib_gauss_16k(ref_t, ne_t, sv)
             else:
                 u = cached("siib-klt", (), lambda: siib_klt_16k(ref_t, sv))
                 out["siib"] = siib_gauss_16k_with_klt(ref_t, ne_t, sv, u)
-        pending.append((idxs, out))
+        pending.append((rows_i, out))
 
-    # one device-to-host copy for the whole corpus
+    # one device-to-host copy for the whole corpus (and one all-gather of
+    # the ranks' scores, rank-major within each chunk)
     if pending:
         names = list(pending[0][1])
         flat = torch.cat([torch.stack([out[m].to(torch.float64)
                                        for m in names]).reshape(-1)
-                          for _, out in pending]).cpu().numpy()
+                          for _, out in pending])
+        if mesh is not None:
+            flat = all_gather_rows(mesh, flat[None])
+        flat = flat.cpu().numpy().reshape(world, -1)
         off = 0
-        for idxs, _ in pending:
-            chunk = flat[off:off + len(names) * len(idxs)].reshape(
-                len(names), len(idxs))
-            off += len(names) * len(idxs)
-            for j, i in enumerate(idxs):
+        for rows_i, _ in pending:
+            b = len(rows_i) // world
+            chunk = np.concatenate(
+                [flat[r, off:off + len(names) * b].reshape(len(names), b)
+                 for r in range(world)], axis=1)
+            off += len(names) * b
+            for j, i in enumerate(rows_i):
                 for k, m in enumerate(names):
                     raw = float(chunk[k, j])
                     results[i][m] = float(mappers[m](raw)) if norm else raw

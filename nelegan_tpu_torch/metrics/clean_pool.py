@@ -27,7 +27,9 @@ comes from `eigh` column-major), and gathered in it, so that a hit hands
 the metric the layout a miss does and both score alike bit for bit.
 
 Values are tensors or tuples, lists and dicts of them, each leaf with the
-chunk's rows on its leading axis.
+chunk's rows on its leading axis.  Over a data-parallel `Mesh` the pool is
+replicated on every rank (as the reference package's pool is over its
+mesh): misses all-gather the ranks' rows, hits gather each rank's own.
 """
 from __future__ import annotations
 
@@ -36,49 +38,25 @@ from typing import Any, Callable, Hashable, List, Sequence
 
 import torch
 
-from nelegan_tpu_torch.metrics import not_ported
+from nelegan_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 from nelegan_tpu_torch.utils.lru import LRUCache
-
-
-def tree_map(fn: Callable, tree, *rest):
-    """fn over the tensor leaves of tuples, lists and dicts of tensors (and
-    of trees of the same structure in `rest`)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree) -> list:
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
-def _memory_order(t: torch.Tensor) -> list:
-    """t's dims from the outermost in memory to the innermost."""
-    return sorted(range(t.dim()), key=lambda d: -t.stride(d))
-
-
-def _inverse(perm: list) -> list:
-    return sorted(range(len(perm)), key=perm.__getitem__)
+from nelegan_tpu_torch.utils.tree import (inverse_perm, memory_order,
+                                         tree_leaves, tree_map)
 
 
 def _zeros_like_layout(v: torch.Tensor, rows: int) -> torch.Tensor:
     """Zeros of v's shape with `rows` rows, dense in v's memory order."""
-    perm = _memory_order(v)
+    perm = memory_order(v)
     shape = (rows,) + tuple(v.shape[1:])
-    return v.new_zeros([shape[d] for d in perm]).permute(_inverse(perm))
+    return v.new_zeros([shape[d] for d in perm]).permute(
+        inverse_perm(perm))
 
 
 def _take_rows(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """p's rows `idx` (a copy), in p's memory order."""
-    perm = _memory_order(p)
+    perm = memory_order(p)
     return p.permute(perm).index_select(perm.index(0), idx).permute(
-        _inverse(perm))
+        inverse_perm(perm))
 
 
 class CleanSidePool:
@@ -193,32 +171,43 @@ class CleanSidePool:
                 0, tidx)), st["pool"], vals)
 
     def ensure(self, sig: Hashable, keys: Sequence[Hashable],
-               compute: Callable[[], Any], mesh=None) -> Any:
+               compute: Callable[[], Any], mesh: Mesh | None = None) -> Any:
         """The chunk's values: one gather (a copy) when every key is in the
-        pool, else compute() with its new rows inserted."""
-        if mesh is not None:
-            raise not_ported("CleanSidePool over a mesh (torch.distributed)")
+        pool, else compute() with its new rows inserted.
+
+        With a `mesh` the pool is replicated on every rank and `keys` name
+        the whole chunk, the same on every rank; the rank gets its rows of
+        the chunk (`mesh.rows`).  On a miss compute() returns the rank's
+        rows; they are all-gathered (one collective), and every rank
+        inserts the whole chunk.  A hit gathers the rank's rows with no
+        collective.  Every rank takes the same branch, so `hits` and
+        `misses` read the same on every rank."""
         st = self._state(sig)
         rows = [st["map"].get(k) for k in keys]
         if st["pool"] is not None and all(r is not None for r in rows):
             for k in keys:                       # refresh the LRU order
                 st["map"].move_to_end(k)
             self.hits += 1
-            return self.gather_rows(sig, rows)
+            return self.gather_rows(
+                sig, rows if mesh is None else rows[mesh.rows(len(rows))])
         self.misses += 1
         vals = compute()                         # stacked [B, ...] tree
-        self._insert(st, keys, vals, rows, set(), 0)
+        full = vals if mesh is None else all_gather_rows(mesh, vals)
+        self._insert(st, keys, full, rows, set(), 0)
         return vals
 
     def ensure_rows(self, sig: Hashable, keys: Sequence[Hashable],
                     compute: Callable[[], Any],
-                    pinned_rows: set | None = None):
+                    pinned_rows: set | None = None,
+                    mesh: Mesh | None = None):
         """Pool row indices for `keys` without gathering, computing and
         inserting missing rows first, for a caller that gathers the rows
         later itself.  `pinned_rows` are rows already resolved for the same
         pending work: this call's evictions spare them, and the row cap is
         lifted to fit them.  Returns (pool tree, row list); the returned
-        pool holds every key's row."""
+        pool holds every key's row.  With a `mesh`, as in `ensure`: compute()
+        returns the rank's rows, and the row list covers every key (the
+        caller takes its rank's share)."""
         st = self._state(sig)
         pinned = set(pinned_rows or ())
         rows = [st["map"].get(k) for k in keys]
@@ -229,6 +218,8 @@ class CleanSidePool:
             return st["pool"], rows
         self.misses += 1
         vals = compute()
+        if mesh is not None:
+            vals = all_gather_rows(mesh, vals)
         self._insert(st, keys, vals, rows, pinned, len(pinned))
         return st["pool"], [st["map"][k] for k in keys]
 

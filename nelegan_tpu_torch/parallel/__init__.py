@@ -1,0 +1,14 @@
+"""Data parallelism over `torch.distributed` (counterpart of
+`nelegan_tpu/parallel/`): the mesh and its collectives (`mesh.py`) and a
+launcher of local worlds (`launch.py`)."""
+from nelegan_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    all_gather_rows,
+    all_reduce_sum,
+    assert_replicated,
+    make_mesh,
+    replica_digest,
+    replicate,
+    shard_batch,
+    shard_params,
+)

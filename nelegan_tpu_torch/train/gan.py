@@ -22,6 +22,15 @@ updates it in place (and returns it, with its losses as device tensors, so
 no step waits for the device).  Copy a state with `copy.deepcopy`.
 Featurization runs without autograd through `pipeline.featurize_batch`,
 whose noise PSD is the IMCRA kernel on a CUDA device (one launch a batch).
+
+Over a data-parallel `parallel.Mesh` (`mesh=`) each rank passes its rows of
+the batch and every rank holds the same state.  The loss is the reference
+package's global masked mean: each rank back-propagates its rows' masked
+sum, and one all-reduce per optimizer step sums the gradients together
+with the sums and the row-weight denominators, so the update, the masking
+of padding rows and the returned loss are those of the whole batch.  The
+power iteration, the cumulative LayerNorm and the energy normalisation
+depend on the weights or on one row, so they need no collective.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from nelegan_tpu_torch.dsp.stft import stft
 from nelegan_tpu_torch.models.discriminator import (IntelDiscriminator,
                                                     QualityDiscriminator)
 from nelegan_tpu_torch.models.generator import Generator
+from nelegan_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 from nelegan_tpu_torch.pipeline import (beta2_energy_norm, featurize_batch,
                                         frame_mask, pcm16_quantize,
                                         reflect_pad_device)
@@ -153,6 +163,33 @@ def _masked_mse(score, target, rv, w, rden) -> torch.Tensor:
             / (rden * score.shape[-1]))
 
 
+def _update(opt: torch.optim.Adam, loss_sum: torch.Tensor,
+            rv: torch.Tensor, mesh: Mesh | None, tag: str) -> torch.Tensor:
+    """One optimizer step on a masked-mean loss, -> the loss (detached).
+
+    Without a mesh `loss_sum` is the loss itself.  With one it is the
+    rank's share of the loss's numerator (the losses' column means summed
+    over its rows, undivided): the gradients, that share and the rank's
+    row-weight sum `rv.sum()` are summed over the ranks in one all-reduce,
+    and the gradients divided by the world's denominator, clamped to >= 1
+    as a single device clamps it."""
+    opt.zero_grad(set_to_none=True)
+    loss_sum.backward()
+    if mesh is None:
+        opt.step()
+        return loss_sum.detach()
+    params = [p for g in opt.param_groups for p in g["params"]
+              if p.grad is not None]
+    sums = all_reduce_sum(mesh, [p.grad for p in params]
+                          + [loss_sum.detach(), rv.sum()], tag)
+    den = torch.clamp_min(sums[-1], 1.0)
+    with torch.no_grad():
+        for p, g in zip(params, sums):
+            p.grad.copy_(g / den)
+    opt.step()
+    return sums[-2] / den
+
+
 def _band_images(enh, noise, clean, fmask):
     """[B, T, 64] bands -> zero-padded NCHW images [B, 3, 64, T] (enhanced,
     noise, clean) and [B, 2, 64, T] (enhanced, clean)."""
@@ -179,12 +216,14 @@ def _frozen(*modules):
 
 def g_step_bands(state: TrainState, clean_band, noise_band, frames,
                  cfg: Config = Config(), intel_cols: tuple | None = None,
-                 quality_cols: tuple | None = None, row_valid=None):
+                 quality_cols: tuple | None = None, row_valid=None,
+                 mesh: Mesh | None = None):
     """One generator update from band features ``[B, T, 64]``.
 
     intel_cols / quality_cols: 0/1 tuples of the score columns that carry
     loss (None: all).  row_valid [B] 0/1: shape-padding rows carry none.
-    Returns (state, loss), the loss a device scalar."""
+    With a `mesh`, the inputs are the rank's rows (module docstring).
+    Returns (state, loss), the loss a device scalar, the whole batch's."""
     dev, dt = state.device, state.dtype
     clean_band = _as_device(clean_band, dt, dev)
     noise_band = _as_device(noise_band, dt, dev)
@@ -195,6 +234,8 @@ def g_step_bands(state: TrainState, clean_band, noise_band, frames,
     wi = _col_weights(intel_cols, cfg.model.n_intel_scores, dt, dev)
     wq = _col_weights(quality_cols, cfg.model.n_quality_scores, dt, dev)
     rv, rden = _row_weights(row_valid, b, dt, dev)
+    if mesh is not None:
+        rden = 1.0          # the rank's sums; _update divides
 
     state.d.train()
     state.dq.train()
@@ -207,19 +248,18 @@ def g_step_bands(state: TrainState, clean_band, noise_band, frames,
         score_q = state.dq(img2, frames)
     loss = (_masked_mse(score, 1.0, rv, wi, rden)
             + cfg.train.weight_qua * _masked_mse(score_q, 1.0, rv, wq, rden))
-    state.gen_opt.zero_grad(set_to_none=True)
-    loss.backward()
-    state.gen_opt.step()
+    loss = _update(state.gen_opt, loss, rv, mesh, "all_reduce:gen")
     state.step_g += 1
-    return state, loss.detach()
+    return state, loss
 
 
 def g_step(state: TrainState, feats, cfg: Config = Config(),
            intel_cols: tuple | None = None, quality_cols: tuple | None = None,
-           row_valid=None):
+           row_valid=None, mesh: Mesh | None = None):
     """`g_step_bands` on a `pipeline.BatchFeatures`."""
     return g_step_bands(state, feats.clean_band, feats.noise_band,
-                        feats.frames, cfg, intel_cols, quality_cols, row_valid)
+                        feats.frames, cfg, intel_cols, quality_cols, row_valid,
+                        mesh)
 
 
 @torch.no_grad()
@@ -275,31 +315,34 @@ def featurize_triple(enh_padded, noise_padded, clean_padded, lengths,
 def d_step(state: TrainState, img3, img2, frames, targets, targets_q,
            cfg: Config = Config(), update_intel: bool = True,
            update_quality: bool = True, intel_cols: tuple | None = None,
-           quality_cols: tuple | None = None, row_valid=None):
+           quality_cols: tuple | None = None, row_valid=None,
+           mesh: Mesh | None = None):
     """One discriminator update, the intelligibility head first, each head
-    with its own optimiser.  A head with ``update_*=False`` is untouched
-    (its power iteration too) and its loss is 0.  Returns (state, loss_d,
-    loss_dq) with device-scalar losses."""
+    with its own optimiser (over a `mesh`, one all-reduce each).  A head
+    with ``update_*=False`` is untouched (its power iteration too) and its
+    loss is 0.  Returns (state, loss_d, loss_dq) with device-scalar losses,
+    the whole batch's."""
     dev, dt = state.device, state.dtype
     img3, img2 = _as_device(img3, dt, dev), _as_device(img2, dt, dev)
     frames = _as_device(frames, None, dev)
     wi = _col_weights(intel_cols, cfg.model.n_intel_scores, dt, dev)
     wq = _col_weights(quality_cols, cfg.model.n_quality_scores, dt, dev)
     rv, rden = _row_weights(row_valid, img3.shape[0], dt, dev)
+    if mesh is not None:
+        rden = 1.0          # the rank's sums; _update divides
     losses = []
-    for update, model, opt, img, tgt, w in (
-            (update_intel, state.d, state.d_opt, img3, targets, wi),
-            (update_quality, state.dq, state.dq_opt, img2, targets_q, wq)):
+    for update, model, opt, img, tgt, w, tag in (
+            (update_intel, state.d, state.d_opt, img3, targets, wi,
+             "all_reduce:d"),
+            (update_quality, state.dq, state.dq_opt, img2, targets_q, wq,
+             "all_reduce:dq")):
         if not update:
             losses.append(torch.zeros((), dtype=dt, device=dev))
             continue
         model.train()
         loss = _masked_mse(model(img, frames), _as_device(tgt, dt, dev), rv,
                            w, rden)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach())
+        losses.append(_update(opt, loss, rv, mesh, tag))
     state.step_d += 1
     return state, losses[0], losses[1]
 
@@ -308,7 +351,8 @@ def d_step_bands(state: TrainState, eband, noise_band, clean_band, frames,
                  targets, targets_q, cfg: Config = Config(),
                  update_intel: bool = True, update_quality: bool = True,
                  intel_cols: tuple | None = None,
-                 quality_cols: tuple | None = None, row_valid=None):
+                 quality_cols: tuple | None = None, row_valid=None,
+                 mesh: Mesh | None = None):
     """`d_step` from enhanced, noise and clean band features (the training
     loop's band pool)."""
     dev, dt = state.device, state.dtype
@@ -317,32 +361,35 @@ def d_step_bands(state: TrainState, eband, noise_band, clean_band, frames,
                             for x in (eband, noise_band, clean_band)), frames)
     return d_step(state, img3, img2, frames, targets, targets_q, cfg,
                   update_intel, update_quality, intel_cols, quality_cols,
-                  row_valid)
+                  row_valid, mesh)
 
 
 def d_step_enhanced(state: TrainState, enh_padded, noise_band, clean_band,
                     frames, targets, targets_q, cfg: Config = Config(),
                     update_intel: bool = True, update_quality: bool = True,
                     intel_cols: tuple | None = None,
-                    quality_cols: tuple | None = None, row_valid=None):
+                    quality_cols: tuple | None = None, row_valid=None,
+                    mesh: Mesh | None = None):
     """`d_step` from a reflect-prepadded enhanced-wav batch and the cached
     clean and noise bands."""
     eband = speech_band(enh_padded, cfg, device=state.device)
     return d_step_bands(state, eband, noise_band, clean_band, frames,
                         targets, targets_q, cfg, update_intel,
-                        update_quality, intel_cols, quality_cols, row_valid)
+                        update_quality, intel_cols, quality_cols, row_valid,
+                        mesh)
 
 
 def d_steps_scan(state: TrainState, eband, clean_band, noise_band, frames,
                  targets, targets_q, row_valid, group_valid,
                  cfg: Config = Config(), update_intel: bool = True,
                  update_quality: bool = True, intel_cols: tuple | None = None,
-                 quality_cols: tuple | None = None):
+                 quality_cols: tuple | None = None, mesh: Mesh | None = None):
     """Sequential D updates over G same-bucket groups: `d_step_bands` on
     each group in turn.
 
     Band inputs are flat ``[G*B, ...]``; targets [G, B, 3], targets_q
-    [G, B, 2], row_valid [G, B].  group_valid [G] is a host bool array (a
+    [G, B, 2], row_valid [G, B].  With a `mesh`, B is the rank's rows of
+    each group.  group_valid [G] is a host bool array (a
     CUDA tensor is refused): a False group is shape padding, skipped on the
     host with no device sync, and leaves the state (step_d too) untouched.
     Returns (state, losses [G, 2] float32), zeros for a skipped group."""
@@ -370,6 +417,6 @@ def d_steps_scan(state: TrainState, eband, clean_band, noise_band, frames,
         _, ld, lq = d_step_bands(
             state, eband[rows], noise_band[rows], clean_band[rows],
             frames[rows], targets[i], targets_q[i], cfg, update_intel,
-            update_quality, intel_cols, quality_cols, row_valid[i])
+            update_quality, intel_cols, quality_cols, row_valid[i], mesh)
         losses.append(torch.stack([ld, lq]).to(torch.float32))
     return state, torch.stack(losses)

@@ -29,14 +29,22 @@ clean-side metric halves and the just-written PCM16 enhanced rows in a
 second one; D passes run groups of `_D_SCAN_GROUPS` through
 `gan.d_steps_scan` on rows gathered once a chunk.
 
+`data_parallel=True` in a process group of more than one rank (torchrun,
+`parallel.launch`) trains over a `parallel.Mesh`, as the reference package
+does over its device mesh: every rank runs this loop from the same seeds,
+enhances, featurizes, scores and steps only its rows of each batch, and
+holds replicated pools and state (the steps' all-reduces, the pools'
+all-gathers; the state is checked bit-equal across the ranks every
+epoch).  Only rank 0 writes files (enhanced wavs, log.txt, the PNGs,
+checkpoints), and every rank passes a barrier before any reads them.
+
 What the reference package does only for XLA or its remote-device tunnel
-is not here: the persistent compilation cache, the mesh barriers and
-sharding helpers (identity without a mesh; data parallelism is ROADMAP
-item 4, and `data_parallel=True` over more than one GPU raises) and the
-RSS guard.  Nor are its two slower forms, kept there as A/B knobs: the
-per-pass reads and featurization without the device pools
-(``NELE_DEV_POOL=0``) and one pool lookup a D group (``NELE_D_SCAN=0``),
-both slower on the card than the pooled, chunked D passes (PERF.md §6).
+is not here: the persistent compilation cache, its CPU mesh's barriers
+(XLA's in-process rendezvous) and the RSS guard.  Nor are its two slower
+forms, kept there as A/B knobs: the per-pass reads and featurization
+without the device pools (``NELE_DEV_POOL=0``) and one pool lookup a D
+group (``NELE_D_SCAN=0``), both slower on the card than the pooled,
+chunked D passes (PERF.md §6).
 """
 from __future__ import annotations
 
@@ -58,6 +66,9 @@ from nelegan_tpu_torch.data.wavio import read_wav, write_wav_pcm16
 from nelegan_tpu_torch.device import resolve_device
 from nelegan_tpu_torch.metrics import ALL_METRICS
 from nelegan_tpu_torch.metrics.clean_pool import CleanSidePool
+from nelegan_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
+                                             assert_replicated, make_mesh,
+                                             replicate, shard_batch)
 from nelegan_tpu_torch.train import gan
 from nelegan_tpu_torch.train.checkpoint import (AsyncSaver,
                                                 load_checkpoint_full)
@@ -78,6 +89,26 @@ class TrainPaths:
     log_file: str = "./log.txt"
 
 
+def data_parallel_mesh(dev: torch.device) -> Optional[Mesh]:
+    """The mesh `Trainer(data_parallel=True)` trains over: one over the
+    default process group when it has more than one rank; None (one
+    device) with one rank, or with no group and at most one visible GPU.
+    With no group and more GPUs it raises: the ranks are processes, which
+    torchrun starts."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        return make_mesh(devices=[dev] * world) if world > 1 else None
+    n = torch.cuda.device_count()
+    if n > 1:
+        raise RuntimeError(
+            f"Trainer(data_parallel=True) sees {n} GPUs and no process "
+            f"group: start one process a GPU with torchrun --nproc-per-node "
+            f"{n} (python -m torch.distributed.run) running "
+            f"nelegan_tpu_torch.cli.train --data-parallel")
+    return None
+
+
 def generator_from_jax_key(key) -> torch.Generator:
     """The `torch.Generator` a run resumed from a reference-package
     checkpoint carries on: seeded with the JAX key's two uint32 words as
@@ -94,9 +125,11 @@ class Trainer:
                  valid_metric_set: Optional[Sequence[str]] = None,
                  data_parallel: bool = False, device=None):
         self.dev = resolve_device(device)
-        if data_parallel and torch.cuda.device_count() > 1:
-            raise metrics.not_ported(
-                "Trainer(data_parallel=True) over more than one GPU")
+        self.mesh = data_parallel_mesh(self.dev) if data_parallel else None
+        if self.mesh is not None and cfg.train.batch_size % self.mesh.world:
+            raise ValueError(f"batch_size {cfg.train.batch_size} must be a "
+                             f"multiple of the {self.mesh.world} ranks for "
+                             f"data-parallel training")
         self.paths = paths
         self.metric_set = tuple(metric_set)
         self.valid_metric_set = tuple(valid_metric_set or metric_set)
@@ -143,6 +176,8 @@ class Trainer:
                                      seed=cfg.train.seed)
         self.state = gan.init_train_state(cfg, seed=cfg.train.seed,
                                           device=self.dev)
+        if self.mesh is not None:
+            self.state = replicate(self.mesh, self.state)
         self.replay = ReplayBuffer(cfg.train.seed)
         self.start_epoch = 1
         self.history: Dict[str, List[float]] = {m: [] for m in
@@ -191,6 +226,45 @@ class Trainer:
         self._drc_score_cache.clear()
         self._pair_len.clear()
 
+    @property
+    def _writer(self) -> bool:
+        """Whether this process writes the run's files: rank 0 of a mesh,
+        or the one process."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        """Every rank waits for the others (after rank 0's writes, before
+        any reads them); nothing without a mesh."""
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _local_rows(self, n: int) -> list:
+        """Indices into a group of `n` paths, padded to the batch size by
+        repeating the last, this rank's share of them (all of them without
+        a mesh)."""
+        bs = self.cfg.train.batch_size
+        return self._my_share(list(range(n)) + [n - 1] * (bs - n))
+
+    def _shard_rows(self, tree):
+        """This rank's rows of a batch of arrays or tensors (the batch
+        itself without a mesh)."""
+        return tree if self.mesh is None else shard_batch(self.mesh, tree)
+
+    def _maybe_shard(self, arrays: tuple, n_real: int) -> tuple:
+        """Host arrays of a group of `n_real` rows padded to the batch size
+        by repeating the trailing row, with the row_valid mask appended
+        (1 for real rows, 0 for padding: no loss), this rank's rows of
+        each (all of them without a mesh)."""
+        bs = self.cfg.train.batch_size
+        rv = (np.arange(bs) < n_real).astype(np.float32)
+        return self._shard_rows(self._pad_batch_rows(arrays, bs) + (rv,)
+                                if arrays else (rv,))
+
+    def _my_share(self, items: list) -> list:
+        """This rank's share of a list a batch long."""
+        return (items if self.mesh is None
+                else items[self.mesh.rows(len(items))])
+
     def _sync(self) -> None:
         """Wait for the device's queued work (the reference package's
         scalar-fetch barrier); nothing on the CPU."""
@@ -204,6 +278,7 @@ class Trainer:
         # trainer on the same directory: reading `latest` while it flips
         # would resume one epoch early
         self._ckpt_saver.wait()
+        self._barrier()             # rank 0's last save is on disk
         path = path or self.paths.checkpoints
         AsyncSaver.barrier(path)
         # the sidecar of the SAME file (not re-derived from `latest`)
@@ -239,7 +314,8 @@ class Trainer:
         # lines that epoch already wrote, so log.txt keeps one line an
         # epoch.  A manual resume from an older checkpoint keeps the later
         # lines unless asked (run_with_recovery asks).
-        if truncate_log and os.path.exists(self.paths.log_file):
+        if (truncate_log and self._writer
+                and os.path.exists(self.paths.log_file)):
             with open(self.paths.log_file) as f:
                 kept = [ln for ln in f
                         if self._log_epoch(ln) < self.start_epoch]
@@ -259,7 +335,9 @@ class Trainer:
         """(names, int16 PCM rows [B, n], out_lens, (wavs, out_lens)) of
         one same-bucket group, as device tensors (no copy to the host).
         A ragged group is padded to the batch size by repetition and its
-        padded rows dropped from `names`."""
+        padded rows dropped from `names`.  Under a mesh the rank enhances
+        its rows; the PCM rows and lengths are the whole batch's
+        (all-gathered), `wavs` and its lengths the rank's."""
         pooled = self._pooled_raw_signals(index, group_paths, loader)
         if pooled is not None:
             names = [index.name(p) for p in group_paths]
@@ -267,9 +345,9 @@ class Trainer:
         else:
             batch = loader.load_group(group_paths)
             names = batch.names
-            clean, noise, lengths = self._pad_batch_rows(
+            clean, noise, lengths = self._shard_rows(self._pad_batch_rows(
                 (batch.clean, batch.noise, batch.lengths),
-                self.cfg.train.batch_size)
+                self.cfg.train.batch_size))
         feats = pipeline.featurize_batch(clean, noise, lengths,
                                          self.cfg.train.p_power,
                                          self.cfg.imcra, device=self.dev)
@@ -278,8 +356,10 @@ class Trainer:
             self.cfg.train.target_rms, device=self.dev)
         # the int16 samples the files will hold (the quantizer replicates
         # the writer's clip and rounding)
-        return (names, pipeline.pcm16_quantize_i16(wavs), out_lens,
-                (wavs, out_lens))
+        q = pipeline.pcm16_quantize_i16(wavs)
+        q_all, lens_all = ((q, out_lens) if self.mesh is None else
+                           all_gather_rows(self.mesh, (q, out_lens)))
+        return names, q_all, lens_all, (wavs, out_lens)
 
     def _enhance_batches(self, index: CorpusIndex, paths: Sequence[str]):
         """Yield `_enhance_group` over the bucketed batches of `paths`, in
@@ -295,9 +375,10 @@ class Trainer:
                         keep_first: int = 10 ** 9,
                         alt_dir: Optional[str] = None,
                         pool_ebands: bool = False) -> List[str]:
-        os.makedirs(out_dir, exist_ok=True)
-        if alt_dir:
-            os.makedirs(alt_dir, exist_ok=True)
+        if self._writer:
+            os.makedirs(out_dir, exist_ok=True)
+            if alt_dir:
+                os.makedirs(alt_dir, exist_ok=True)
         # pass 1: queue every batch on the device (no host copy)
         batches = []
         count = 0
@@ -315,14 +396,14 @@ class Trainer:
                 # (PCM16-quantized there, equal to the file's samples): D
                 # pass 1 starts warm
                 wavs_dev, lens_dev2 = dev
-                blen = wavs_dev.shape[-1]
-                bs = wavs_dev.shape[0]
+                bs, blen = q_dev.shape
                 keys = [(p, blen) for p in batch_paths]
                 keys += [keys[-1]] * (bs - len(keys))
                 self._dev_bands.ensure(
                     ("eb", blen), keys,
                     lambda: gan.eband_from_enhanced(
-                        wavs_dev, lens_dev2, self.cfg, device=self.dev))
+                        wavs_dev, lens_dev2, self.cfg, device=self.dev),
+                    self.mesh)
         if not batches:
             return []
         # pass 2: two device-to-host copies for the whole corpus (samples,
@@ -339,7 +420,9 @@ class Trainer:
             off += bs * blen
             loff += bs
             for i, p in enumerate(batch_paths):
-                write_wav_pcm16(p, wavs[i, :out_lens[i]], self.cfg.train.fs)
+                if self._writer:
+                    write_wav_pcm16(p, wavs[i, :out_lens[i]],
+                                    self.cfg.train.fs)
                 # score_for_d reads this file right back (the reference's
                 # file round trip); int16/32768 is what read_wav returns
                 self._host_sig[p] = (
@@ -351,12 +434,14 @@ class Trainer:
             # so one zero-pad a batch aligns the widths (an utterance less
             # than 256 samples past a multiple of 16384 comes back below
             # it, is scored in the bucket under, and misses, as in the
-            # reference package)
+            # reference package); every rank has the whole batch's rows,
+            # so each inserts them without a collective
             sq = -(-blen // 16384) * 16384
             keys = [(p,) for p in batch_paths]
             keys += [keys[-1]] * (bs - len(keys))
             pool.ensure(("raw-enh", sq), keys,
                         lambda: metrics.pad_rows_to(q_dev, sq))
+        self._barrier()             # the files are on disk for every rank
         return written
 
     def _cached_read(self, path: str) -> np.ndarray:
@@ -383,32 +468,36 @@ class Trainer:
                 os.path.join(index.noise_dir, name)))
             enhs.append(self._cached_read(p))
         return score_corpus(cleans, noises, enhs, self.cfg.train.fs,
-                            norm=norm, metrics=metrics,
+                            norm=norm, metrics=metrics, mesh=self.mesh,
                             clean_cache=self._clean_side_cache,
                             clean_keys=keys,
                             enhanced_keys=list(enhanced_paths),
                             device=self.dev)
 
     # ------------------------------------------------------------------
-    def _cached_bands(self, batch) -> tuple:
-        """(clean_band [B,T,64], noise_band, frames) as host arrays, cached
-        per (name, bucket length); one featurization (one IMCRA launch on
-        the card) and one copy to the host per batch with misses."""
+    def _cached_bands(self, batch, rows: Sequence[int]) -> tuple:
+        """(clean_band [R,T,64], noise_band, frames) of the batch's rows
+        `rows` as host arrays, cached per (name, bucket length); one
+        featurization (one IMCRA launch on the card) and one copy to the
+        host per batch with misses, padded to the rank's share of the
+        batch size."""
         blen = batch.clean.shape[1]
-        missing = [i for i, name in enumerate(batch.names)
-                   if (name, blen) not in self._band_cache]
+        missing = [i for i in sorted(set(rows))
+                   if (batch.names[i], blen) not in self._band_cache]
         if missing:
             # the miss subset padded to the batch width: one shape a bucket
+            width = self.cfg.train.batch_size // (
+                1 if self.mesh is None else self.mesh.world)
             args = self._pad_batch_rows(
                 (batch.clean[missing], batch.noise[missing],
-                 batch.lengths[missing]), self.cfg.train.batch_size)
+                 batch.lengths[missing]), width)
             cb, nb, fr = gan.featurize_bands(*args, self.cfg,
                                              device=self.dev)
             cb, nb, fr = (t.cpu().numpy() for t in (cb, nb, fr))
             for j, i in enumerate(missing):
                 self._band_cache[(batch.names[i], blen)] = (
                     cb[j], nb[j], fr[j])
-        entries = [self._band_cache[(n, blen)] for n in batch.names]
+        entries = [self._band_cache[(batch.names[i], blen)] for i in rows]
         return (np.stack([e[0] for e in entries]),
                 np.stack([e[1] for e in entries]),
                 np.stack([e[2] for e in entries]))
@@ -436,7 +525,8 @@ class Trainer:
         values).  Only a group that round-trips PCM16 exactly is pooled; a
         float-valued group returns None and the caller reads it.  A miss
         reads, pads and uploads the group once; a hit touches neither the
-        disk nor the host-to-device path."""
+        disk nor the host-to-device path.  Under a mesh: the rank's rows
+        and lengths."""
         bs = self.cfg.train.batch_size
         blen = _bucket_len(max(index.length(p) for p in group_paths),
                            loader.bucket_quant)
@@ -460,12 +550,13 @@ class Trainer:
                 raise _NotPCM16  # float-valued corpus: caller reads
             for p, ln in zip(padded, lengths):
                 self._pair_len[p] = int(ln)
+            cs, ns = self._shard_rows((cs, ns))
             return (torch.from_numpy(cs.astype(np.int16)).to(self.dev),
                     torch.from_numpy(ns.astype(np.int16)).to(self.dev))
 
         try:
             clean_i16, noise_i16 = self._dev_bands.ensure(
-                ("raw-cn", blen), keys, compute)
+                ("raw-cn", blen), keys, compute, self.mesh)
         except _NotPCM16:
             return None
         if not all((p in self._pair_len) for p in padded):
@@ -473,11 +564,11 @@ class Trainer:
             # trainer): read instead
             return None
         lengths = np.asarray([self._pair_len[p] for p in padded], np.int32)
-        return clean_i16, noise_i16, lengths
+        return clean_i16, noise_i16, self._shard_rows(lengths)
 
     def _cn_keys_compute(self, group_paths: Sequence[str]):
         """(sig, keys, compute) for a same-bucket clean/noise band group,
-        padded to the batch size."""
+        padded to the batch size (compute: the rank's rows)."""
         bs = self.cfg.train.batch_size
         blen = _bucket_len(max(self.train_index.length(p)
                                for p in group_paths))
@@ -487,15 +578,16 @@ class Trainer:
 
         def compute():
             batch = self.loader.load_group(group_paths)
-            cb, nb, fr = self._cached_bands(batch)
-            cb, nb, fr = self._pad_batch_rows((cb, nb, fr), bs)
+            cb, nb, fr = self._cached_bands(
+                batch, self._local_rows(len(group_paths)))
             return tuple(torch.from_numpy(a).to(self.dev)
                          for a in (cb, nb, fr))
 
         return ("cn", blen), keys, compute
 
     def _eb_keys_compute(self, group: Sequence[ReplayEntry], blen: int):
-        """(sig, keys, compute) for one D group's enhanced-band rows."""
+        """(sig, keys, compute) for one D group's enhanced-band rows
+        (compute: the rank's rows)."""
         bs = self.cfg.train.batch_size
         padded = list(group) + [group[-1]] * (bs - len(group))
         keys = [(e.enhanced_path, blen) for e in padded]
@@ -506,7 +598,7 @@ class Trainer:
             enhs = [self._cached_read(e.enhanced_path)[:blen]
                     for e in group]
             ep, _ = pipeline.reflect_pad_batch(enhs, blen)
-            ep = self._pad_batch_rows((ep,), bs)[0]
+            ep = self._shard_rows(self._pad_batch_rows((ep,), bs)[0])
             s = np.asarray(ep, np.float32) * np.float32(32768.0)
             if ((s >= -32768) & (s <= 32767) & (s == np.round(s))).all():
                 # PCM16 rows (the written files): decoded on the device
@@ -524,18 +616,17 @@ class Trainer:
         padded to the batch size, gathered from the device pool; misses
         load and featurize the group once (through the host band cache)."""
         sig, keys, compute = self._cn_keys_compute(group_paths)
-        return self._dev_bands.ensure(sig, keys, compute)
+        return self._dev_bands.ensure(sig, keys, compute, self.mesh)
 
     def _pooled_ebands(self, group: Sequence[ReplayEntry], blen: int):
         """Enhanced band rows of one D group, from the device pool: an
         enhanced file is immutable once written, so its bands serve the
         epoch's remaining passes and replay in later epochs."""
         sig, keys, compute = self._eb_keys_compute(group, blen)
-        return self._dev_bands.ensure(sig, keys, compute)
+        return self._dev_bands.ensure(sig, keys, compute, self.mesh)
 
     def train_generator_epoch(self, sampled: Sequence[str]) -> float:
         losses = []  # device scalars, copied to the host once
-        bs = self.cfg.train.batch_size
         # BucketedLoader.__call__'s RNG stream exactly (shuffle the paths,
         # then _batches shuffles the groups): pooled and unpooled runs
         # sample alike, and resume stays deterministic
@@ -546,11 +637,11 @@ class Trainer:
             n_real = len(group)
             args = self._pooled_cn_bands(group)
             # padded rows repeat real ones for the shape, with no loss
-            mask = (np.arange(bs) < n_real).astype(np.float32)
+            (mask,) = self._maybe_shard((), n_real)
             self.state, loss = gan.g_step_bands(
                 self.state, *args, self.cfg,
                 intel_cols=self._intel_cols, quality_cols=self._qua_cols,
-                row_valid=mask)
+                row_valid=mask, mesh=self.mesh)
             losses.append(loss)
         return (float(np.mean(torch.stack(losses).cpu().numpy()))
                 if losses else 0.0)
@@ -569,7 +660,8 @@ class Trainer:
                  for m in self.valid_metric_set}
         for m, v in means.items():
             self.history[m].append(v)
-        self._log(epoch, means)
+        if self._writer:
+            self._log(epoch, means)
         return means
 
     def _log(self, epoch: int, means: Dict[str, float]):
@@ -613,7 +705,8 @@ class Trainer:
         batch-gathered from the device pool, one gather a pool a chunk
         (`ensure_rows` resolves the rows without gathering and pins them
         until the chunk is dispatched).  Updates stay sequential in entry
-        order."""
+        order.  Under a mesh each rank gathers and steps its rows of every
+        group."""
         entries = list(entries)
         self.rng.shuffle(entries)
         bs = self.cfg.train.batch_size
@@ -664,15 +757,14 @@ class Trainer:
             for group in chunk:
                 tg = np.array([e.scores[:3] for e in group], np.float32)
                 tq = np.array([e.scores[3:5] for e in group], np.float32)
-                n_real = len(group)
-                tg, tq = self._pad_batch_rows((tg, tq), bs)
+                tg, tq, rv = self._maybe_shard((tg, tq), len(group))
                 tgs.append(tg)
                 tqs.append(tq)
-                rvs.append((np.arange(bs) < n_real).astype(np.float32))
+                rvs.append(rv)
             for _ in range(GC - n_valid):     # shape-padding groups
-                tgs.append(np.zeros((bs, 3), np.float32))
-                tqs.append(np.zeros((bs, 2), np.float32))
-                rvs.append(np.zeros(bs, np.float32))
+                tgs.append(np.zeros_like(tgs[0]))
+                tqs.append(np.zeros_like(tqs[0]))
+                rvs.append(np.zeros_like(rvs[0]))
             if timing is not None:
                 timing["host_s"] += time.perf_counter() - _t0
                 _t0 = time.perf_counter()
@@ -685,17 +777,17 @@ class Trainer:
                           for e in group]
                 sig_cn, keys, compute = self._cn_keys_compute(cpaths)
                 _, rows = self._dev_bands.ensure_rows(
-                    sig_cn, keys, compute, pinned_cn)
+                    sig_cn, keys, compute, pinned_cn, self.mesh)
                 pinned_cn |= set(rows)
-                cn_rows.append(rows)
+                cn_rows.append(self._my_share(rows))
                 sig_eb, keys, compute = self._eb_keys_compute(group, b)
                 _, rows = self._dev_bands.ensure_rows(
-                    sig_eb, keys, compute, pinned_eb)
+                    sig_eb, keys, compute, pinned_eb, self.mesh)
                 pinned_eb |= set(rows)
-                eb_rows.append(rows)
+                eb_rows.append(self._my_share(rows))
             for _ in range(GC - n_valid):     # shape-padding groups
-                cn_rows.append([0] * bs)
-                eb_rows.append([0] * bs)
+                cn_rows.append([0] * len(cn_rows[0]))
+                eb_rows.append([0] * len(eb_rows[0]))
             # one batched gather per pool for the whole chunk
             cb, nb, fr = self._dev_bands.gather_rows(
                 sig_cn, [r for rows in cn_rows for r in rows])
@@ -714,7 +806,7 @@ class Trainer:
                 update_intel=self.intel_active,
                 update_quality=self.qua_active,
                 intel_cols=self._intel_cols,
-                quality_cols=self._qua_cols)
+                quality_cols=self._qua_cols, mesh=self.mesh)
             if timing is not None:
                 _bar()
                 timing["step_s"] += time.perf_counter() - _t0
@@ -735,7 +827,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def run_epoch(self, epoch: int) -> Dict[str, float]:
         t0 = time.time()
-        os.makedirs(self.paths.output, exist_ok=True)
+        if self._writer:
+            os.makedirs(self.paths.output, exist_ok=True)
         disc_dir = os.path.join(self.paths.output,
                                 "For_discriminator_training")
 
@@ -794,25 +887,29 @@ class Trainer:
             self.replay.extend(current)
             self.train_discriminator_pass(current)
 
+        if self.mesh is not None:
+            assert_replicated(self.mesh, self.state,
+                              f"the train state after epoch {epoch}")
         # the complete end-of-epoch state (the reference saves only G/D
         # weights mid-epoch, train_nele.py:272-277; after the D passes,
         # resume is exact, replay included)
         with self.timer.phase("checkpoint"):
-            self._ckpt_saver.save_async(
-                self.paths.checkpoints, epoch, self.state, self.key,
-                self.replay.state_dict(),
-                extra={"rng_state": list(self.rng.getstate()),
-                       "replay_rng": list(self.replay.rng.getstate()),
-                       "loader_rng": list(self.loader.rng.getstate()),
-                       "history": self.history,
-                       "telemetry": self.telemetry,
-                       "timing": {k: [self.timer._total[k],
-                                      self.timer._count[k]]
-                                  for k in self.timer._total},
-                       # the model's shape travels with the weights
-                       "config": config_to_dict(self.cfg)},
-                keep_every=self.cfg.train.ckpt_keep_every,
-                keep_last=self.cfg.train.ckpt_keep_last)
+            if self._writer:
+                self._ckpt_saver.save_async(
+                    self.paths.checkpoints, epoch, self.state, self.key,
+                    self.replay.state_dict(),
+                    extra={"rng_state": list(self.rng.getstate()),
+                           "replay_rng": list(self.replay.rng.getstate()),
+                           "loader_rng": list(self.loader.rng.getstate()),
+                           "history": self.history,
+                           "telemetry": self.telemetry,
+                           "timing": {k: [self.timer._total[k],
+                                          self.timer._count[k]]
+                                      for k in self.timer._total},
+                           # the model's shape travels with the weights
+                           "config": config_to_dict(self.cfg)},
+                    keep_every=self.cfg.train.ckpt_keep_every,
+                    keep_last=self.cfg.train.ckpt_keep_last)
 
         # long-run health: replay growth and the pools' hits, misses and
         # resident bytes, cumulative
@@ -828,7 +925,7 @@ class Trainer:
         })
 
         tmp = os.path.join(self.paths.output, "temp")
-        if os.path.isdir(tmp):
+        if self._writer and os.path.isdir(tmp):
             shutil.rmtree(tmp)
         means["g_loss"] = g_loss
         means["epoch_seconds"] = time.time() - t0
@@ -840,6 +937,8 @@ class Trainer:
             for epoch in range(self.start_epoch, end):
                 before = dict(self.timer._total)
                 means = self.run_epoch(epoch)
+                if not self._writer:
+                    continue
                 print(f"Epoch {epoch} finished: "
                       + ", ".join(f"{k}={v:.4f}" for k, v in means.items()))
                 if verbose_timing:
@@ -853,5 +952,6 @@ class Trainer:
             # the last epoch's background save is on disk before the
             # caller reads checkpoints (or the process exits)
             self._ckpt_saver.wait()
-        if self._band_cache:  # ran at least one epoch
+        self._barrier()           # for every rank
+        if self._band_cache and self._writer:  # ran at least one epoch
             print(f"phase timing: {self.timer}")

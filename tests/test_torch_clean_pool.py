@@ -11,6 +11,7 @@ from nelegan_tpu.metrics.clean_pool import CleanSidePool as JaxPool
 from nelegan_tpu.utils.lru import LRUCache as JaxLRU
 from nelegan_tpu_torch import metrics
 from nelegan_tpu_torch.metrics.clean_pool import CleanSidePool, tree_map
+from nelegan_tpu_torch.parallel import launch
 from nelegan_tpu_torch.utils.lru import LRUCache
 
 
@@ -114,8 +115,34 @@ def test_pool_tensors_are_not_shared():
     assert old.tolist() == [[1.0], [2.0]] and first.tolist() == [[1.0],
                                                                  [2.0]]
     assert tree_map(lambda x: x + 1, {"k": (torch.zeros(1),)})["k"][0] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pool.ensure("s", ["a"], lambda: None, mesh=object())
+    # over an in-process world of one rank, the same calls give the same
+    # values and layouts bit for bit, and the same hits and misses
+    # (tests/test_torch_parallel.py holds a world of two)
+    calls = [("ensure", "s", ["a", "b"], [[1.0], [2.0]]),
+             ("ensure", "s", ["b", "a"], None),
+             ("ensure_rows", "s", ["c", "a"], [[3.0], [1.0]]),
+             ("ensure", "t", ["x"], [[5.0, 6.0]])]
+
+    def play(pool, mesh):
+        out = []
+        for how, sig, keys, vals in calls:
+            def compute(vals=vals):
+                # column-major rows, as SIIB's KLT basis comes from eigh
+                return torch.tensor(vals, dtype=torch.float64).t().contiguous(
+                ).t()
+            if how == "ensure":
+                out.append(pool.ensure(sig, keys, compute, mesh))
+            else:
+                _, rows = pool.ensure_rows(sig, keys, compute, None, mesh)
+                out.append(pool.gather_rows(sig, rows))
+        return out, (pool.hits, pool.misses)
+
+    want, counts = play(CleanSidePool(max_rows_per_shape=64), None)
+    with launch.world_of_one("gloo", "cpu") as mesh:
+        got, got_counts = play(CleanSidePool(max_rows_per_shape=64), mesh)
+    assert got_counts == counts == (1, 3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) and g.stride() == w.stride()
 
 
 def _pcm16(x):

@@ -77,6 +77,21 @@ def test_trainer_modules_are_covered():
             "nelegan_tpu_torch.utils.profiling"} <= set(_port_modules())
 
 
+def test_parallel_modules_are_covered(monkeypatch):
+    """The data-parallel modules are among those imported and scanned; a
+    mesh needs a process group, and its default device is CUDA."""
+    assert {"nelegan_tpu_torch.parallel", "nelegan_tpu_torch.parallel.mesh",
+            "nelegan_tpu_torch.parallel.launch",
+            "nelegan_tpu_torch.utils.tree"} <= set(_port_modules())
+    from nelegan_tpu_torch.parallel import launch, make_mesh
+    with pytest.raises(RuntimeError, match="torchrun"):
+        make_mesh(devices=["cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with launch.world_of_one():
+            pass
+
+
 def test_no_port_source_imports_jax_or_reference_package():
     sources = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 10

@@ -24,6 +24,7 @@ from nelegan_tpu_torch.dsp import imcra
 from nelegan_tpu_torch.dsp.resample import resample_poly
 from nelegan_tpu_torch.metrics import calibrate
 from nelegan_tpu_torch.metrics.clean_pool import CleanSidePool
+from nelegan_tpu_torch.parallel import launch
 
 jestoi = importlib.import_module("nelegan_tpu.metrics.estoi")
 jsiib = importlib.import_module("nelegan_tpu.metrics.siib")
@@ -273,11 +274,12 @@ def test_score_corpus_matches_score_batch(triples):
 
 
 def test_unported_metrics_and_options_raise(triples):
-    """Scoring over a mesh still raises and names ROADMAP.md.  PESQ and
-    ViSQOL, a CleanSidePool and enhanced_keys, which raised before they
-    were ported, now score: score_pair gives the metric functions' raw
-    values on (clean, enhanced), and the pool and the enhanced keys leave
-    score_corpus's scores as they are."""
+    """PESQ and ViSQOL, a CleanSidePool, enhanced_keys and a mesh, which
+    raised before they were ported, now score: score_pair gives the metric
+    functions' raw values on (clean, enhanced), the pool and the enhanced
+    keys leave score_corpus's scores as they are, and so does a mesh of an
+    in-process world of one rank, bit for bit (tests/test_torch_parallel.py
+    holds a world of two)."""
     c, n, e = (x[:8000] for x in triples[0])
     got = metrics.score_pair(c, n, e, norm=False, metrics=("pesq", "visqol"),
                              device="cpu")
@@ -288,10 +290,10 @@ def test_unported_metrics_and_options_raise(triples):
     assert got == {k: float(v) for k, v in want.items()}
     assert metrics.pesq_proxy is metrics.pesq_p862
     assert metrics.visqol_proxy_16k is metrics.visqol_speech_16k
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        metrics.score_corpus([c], [n], [e], device="cpu", mesh=object())
     kw = dict(norm=False, metrics=("estoi", "pesq"), device="cpu")
     base = metrics.score_corpus([c], [n], [e], **kw)
+    with launch.world_of_one("gloo", "cpu") as mesh:
+        assert metrics.score_corpus([c], [n], [e], mesh=mesh, **kw) == base
     assert metrics.score_corpus([c], [n], [e], enhanced_keys=["x"],
                                 **kw) == base
     assert metrics.score_corpus([c], [n], [e], clean_keys=["a"],

@@ -3,7 +3,7 @@ one small PCM16 corpus cut from the golden signals: two epochs from the
 same initial state, and epoch 2 resumed from the JAX package's epoch-1
 checkpoint; then the port alone: exact resume and recovery against the
 same run emptied of its caches, the device pools' hits, and the
-data-parallel guard.  CPU, float32."""
+data-parallel rule without a process group.  CPU, float32."""
 import glob
 import os
 import shutil
@@ -343,11 +343,15 @@ def test_pools_serve_every_epoch(port_run):
 
 def test_data_parallel_raises_with_more_than_one_gpu(corpus, tmp_path,
                                                      monkeypatch):
+    """data_parallel=True with more than one visible GPU and no process
+    group raises, naming torchrun: the ranks are processes.  With one
+    device or none it trains single-device, as the JAX package does with
+    one device.  (tests/test_torch_parallel.py trains a world of two.)"""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         port_trainer(corpus, tmp_path, data_parallel=True)
-    assert "item 4" in ROADMAP_ITEM
-    # one device or none: runs single-device, as the JAX package does
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert port_trainer(corpus, tmp_path, data_parallel=True).dev.type == \
-        "cpu"
+    t = port_trainer(corpus, tmp_path, data_parallel=True)
+    assert t.dev.type == "cpu" and t.mesh is None
+    # only tensor parallelism is still unported, and names its item
+    assert "tensor parallelism" in ROADMAP_ITEM
