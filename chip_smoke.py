@@ -5,6 +5,8 @@
 
 Needs one CUDA GPU (sm_90a: H100) and `nvcc`; exits non-zero without them,
 and in a directory that holds this file and nothing else of the repository.
+`python3 chip_smoke.py --fault-hunt N` runs only the hunt for the open
+fault of ROADMAP section 3 (see `fault_hunt`).
 Phases, in order; any failure raises:
 
   1. the card, as `nvidia-smi --query-gpu=name,power.limit` prints it;
@@ -213,10 +215,20 @@ Phases, in order; any failure raises:
      device-busy shares as the single run's; epoch seconds by phase,
      utterances/s and
      all-reduce ms per G and D step per rank, beside the single run's;
+     then, in the same world, tensor parallelism: a second mesh of model
+     axis TP_MODEL (data axis 1), the full-width state from one seed
+     sharded over it (`shard_params`), one G and one D step at batch 8 of
+     the 36864 bucket featurized on each rank's card (IMCRA once a rank)
+     against the same steps on rank 0 alone: G's loss within
+     F32_LOSS_BAR, the D losses and the gathered state's update
+     (`gather_params`) within F32_UPDATE_BAR, the replicated leaves
+     bit-equal on both ranks; G- and D-step times for single, dp
+     (4 rows a rank) and tp, with each step's collectives by tag and
+     their host-clock ms;
  13. one JSON line per phase, one of kernel records (each with its launches
      on the serving, training, streaming, infer, scoring, gradient,
      trainer, mixed-precision and direct paths, per rank on the parallel
-     one, and in the kernel phase;
+     one and its tensor-parallel part, and in the kernel phase;
      `launches` is its own path's: serving for IMCRA and the cascade,
      scoring for linrec, the direct phase for linrec_bwd), the card line
      again, and last `{"ok": true, "device": ...}`.
@@ -381,8 +393,12 @@ TRAINER_SMALL_TRAIN, TRAINER_SMALL_TEST = 8, 4
 TRAINER_SMALL_METRICS = ("estoi", "pesq")
 PAPER_SAMPLED, PAPER_VALID, PAPER_EPOCHS = 300, 480, 2
 # Parallel phase: DP_WORLD ranks on the one card train DP_EPOCHS epochs of
-# the trainer phase's full-width run (and a traced one after them)
+# the trainer phase's full-width run (and a traced one after them); then
+# the same ranks on a mesh of model axis TP_MODEL take G and D steps,
+# TP_TIMED of each timed per form after two warm ones, TP_TRACED more with
+# the mesh's collectives timed
 DP_WORLD, DP_EPOCHS = 2, 2
+TP_MODEL, TP_TIMED, TP_TRACED = 2, 10, 2
 # Mixed-precision phase: the bfloat16 mask against float32 on valid frames
 # within the reference package's bars (tests/test_mixed_precision.py:68-69:
 # mean and max relative difference), both discriminators' scores within
@@ -3791,7 +3807,148 @@ def dp_trainer_rank(mesh, cfg: Config, corpus: str, run: str,
                        for r in t.epochs],
             "scored": t.scored, "busy": t.busy,
             "replay": replay_rows(t.replay.entries, run_roots(t)),
-            "history": t.history}
+            "history": t.history, "tp": tp_rank(mesh)}
+
+
+def tp_inputs(cfg: Config, dev) -> tuple:
+    """The training phase's batch (`train_batch`: 8 rows of the 36864
+    bucket, one a padding row) featurized on this rank's card (one IMCRA
+    launch), its clean rows at half gain as the enhanced bands (the
+    trainer's pre-enhanced stand-in), seeded targets, row_valid."""
+    cp, npd, lens, row_valid = train_batch()
+    cb, nb, fr = gan.featurize_bands(cp, npd, lens, cfg, device=dev)
+    eb = gan.speech_band(0.5 * cp, cfg, device=dev).to(cb.dtype)
+    rng = np.random.RandomState(11)
+    tg = rng.uniform(0.2, 0.9, (8, 3)).astype(np.float32)
+    tq = rng.uniform(0.2, 0.9, (8, 2)).astype(np.float32)
+    return cb, nb, eb, fr, tg, tq, row_valid
+
+
+def tp_step_fns(state, ins, cfg: Config, mesh) -> tuple:
+    """(a G step, a D step) of `state` on `mesh`'s rows of `ins` (None:
+    all of them), each returning its losses as device scalars."""
+    cb, nb, eb, fr, tg, tq, rv = (ins if mesh is None else
+                                  parallel.shard_batch(mesh, ins))
+
+    def g():
+        return gan.g_step_bands(state, cb, nb, fr, cfg, INTEL_COLS, None,
+                                rv, mesh)[1:]
+
+    def d():
+        return gan.d_step_bands(state, eb, nb, cb, fr, tg, tq, cfg,
+                                intel_cols=INTEL_COLS, row_valid=rv,
+                                mesh=mesh)[1:]
+    return g, d
+
+
+def tp_time(state, ins, cfg: Config, mesh, barrier) -> dict:
+    """Host-clock ms a G step and a D step (TP_TIMED warm steps, after two
+    untimed, the device synchronised at the end; the ranks start each
+    burst together) and, with a mesh, each step's collectives by tag:
+    calls and ms (TP_TRACED more steps with the mesh timed)."""
+    out = {}
+    for name, fn in zip("gd", tp_step_fns(state, ins, cfg, mesh)):
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        barrier()
+        t0 = time.perf_counter()
+        for _ in range(TP_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) / TP_TIMED * 1e3
+        if mesh is None:
+            continue
+        before = {k: tuple(v) for k, v in mesh.stats.items()}
+        mesh.timed = True
+        for _ in range(TP_TRACED):
+            fn()
+        mesh.timed = False
+        out[f"{name}_collectives"] = {
+            k: [(v[0] - before.get(k, (0, 0.0))[0]) / TP_TRACED,
+                1e3 * (v[1] - before.get(k, (0, 0.0))[1]) / TP_TRACED]
+            for k, v in mesh.stats.items()
+            if v[0] != before.get(k, (0, 0.0))[0]}
+    return out
+
+
+def tp_rank(mesh) -> dict:
+    """The tensor-parallel part of the parallel phase, on one rank of its
+    gloo world (float32, TF32 off, deterministic cuDNN, set by the
+    caller): a second mesh over the same ranks, model axis TP_MODEL and
+    data axis 1; the full-width state from seed 0 (the same on every rank)
+    sharded over it (`shard_params`) takes one G step and one D step on
+    `tp_inputs`; rank 0 takes the same steps from the same state alone,
+    and compares the losses and the gathered state (`gather_params`).
+    The sharded state's replicated leaves bit-equal on both ranks
+    (`assert_replicated` raises).  Then step times: single (rank 0 alone,
+    the other rank waiting), dp (the world's data mesh, 4 rows a rank)
+    and tp."""
+    cfg, dev = Config(), mesh.device
+    launched = dict(kernels.launches)
+    ins = tp_inputs(cfg, dev)
+    out = {"rank": mesh.rank}
+    origin = gan.init_train_state(cfg, 0, dev)
+    tp = parallel.make_mesh(devices=[dev] * mesh.world,
+                            model_parallel=TP_MODEL)
+    sharded = parallel.shard_params(tp, copy.deepcopy(origin))
+    out["tp_losses"] = [float(x) for fn in tp_step_fns(sharded, ins, cfg, tp)
+                        for x in fn()]
+    parallel.assert_replicated(tp, sharded, "the tensor-parallel state")
+    whole = parallel.gather_params(tp, sharded)
+    if mesh.rank == 0:
+        ref = copy.deepcopy(origin)
+        out["single_losses"] = [float(x) for fn in
+                                tp_step_fns(ref, ins, cfg, None)
+                                for x in fn()]
+        out["state"] = state_errors(whole, ref, origin)
+    # the checked G and D steps' collectives, gather_params' and the check's
+    out["collectives"] = {k: v[0] for k, v in tp.stats.items()}
+    times = {}
+    mesh.barrier()
+    if mesh.rank == 0:
+        times["single"] = tp_time(copy.deepcopy(origin), ins, cfg, None,
+                                  lambda: None)
+    times["dp"] = tp_time(copy.deepcopy(origin), ins, cfg, mesh,
+                          mesh.barrier)
+    times["tp"] = tp_time(sharded, ins, cfg, tp, tp.barrier)
+    out["times"] = times
+    out["launches"] = {k: v - launched[k] for k, v in kernels.launches.items()}
+    return out
+
+
+def tp_check(parts: list) -> dict:
+    """The tensor-parallel part's gates on what its ranks returned: G's
+    loss within F32_LOSS_BAR of the single rank's, the D heads' losses and
+    the gathered state's update within F32_UPDATE_BAR; both ranks' losses
+    equal; IMCRA once on each rank (its featurization) and no other kernel
+    (the steps score nothing)."""
+    r0 = parts[0]
+    got, want = r0["tp_losses"], r0["single_losses"]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b) if b else abs(a)
+    vs = {"g_loss_rel": rel(got[0], want[0]),
+          "d_loss_rel": max(rel(got[k], want[k]) for k in (1, 2)),
+          **r0["state"]}
+    launches = [p["launches"] for p in parts]
+    res = {"vs_single": vs, "losses": {"single": want, "tp": got},
+           "launches_per_rank": launches,
+           "collectives_checked_steps": r0["collectives"],
+           "times": {f"rank{p['rank']}": p["times"] for p in parts}}
+    print(f"tp, model axis {TP_MODEL} over {len(parts)} gloo ranks on one "
+          f"card, one G and one D step against the single rank: {vs}; bars "
+          f"F32_LOSS_BAR {F32_LOSS_BAR} (G), F32_UPDATE_BAR {F32_UPDATE_BAR}"
+          f" (D losses, update); step times and collectives a step: "
+          f"{json.dumps(res['times'])}")
+    if not (vs["g_loss_rel"] <= F32_LOSS_BAR
+            and vs["d_loss_rel"] <= F32_UPDATE_BAR
+            and vs["update_rel"] <= F32_UPDATE_BAR
+            and all(p["tp_losses"] == got for p in parts)
+            and all(n["imcra_scan"] == 1 and sum(n.values()) == 1
+                    for n in launches)):
+        raise AssertionError(f"tp against the single rank: {res}")
+    return res
 
 
 def step_collective_ms(rec: dict) -> dict:
@@ -3937,6 +4094,240 @@ def nccl_refusal(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ fault hunt
+# The open fault of ROADMAP section 3: a CLI run's bits once changed while
+# another process shared the card.  `python3 chip_smoke.py --fault-hunt N`
+# runs the small corpus's CLI (cli_world_of_one's arguments) alone twice,
+# beside a ballast process that holds all but a little of the card's
+# memory, beside one that keeps the card busy, and N times in the failing
+# form: a torchrun world of one over NCCL, the plain CLI and the NCCL probe
+# at once.  Every run is held against the first lone run.
+# the CLI as a script (torchrun runs a file or a module): it keeps the
+# Trainer's initial state (init.pt), and at exit writes record.json (the
+# process's threads, cuDNN flags, peak reserved bytes, the environment
+# variables that steer torch, CUDA and NCCL) into NELE_HUNT_DIR
+HUNT_CLI = """
+import atexit, json, os, runpy, torch
+from nelegan_tpu_torch.train import loop
+run = os.environ["NELE_HUNT_DIR"]
+init = loop.Trainer.__init__
+def kept_init(self, *args, **kw):
+    init(self, *args, **kw)
+    torch.save({k: {n: t.detach().cpu() for n, t in getattr(
+        self.state, k).state_dict().items()} for k in ("gen", "d", "dq")},
+        os.path.join(run, "init.pt"))
+loop.Trainer.__init__ = kept_init
+def record():
+    with open(os.path.join(run, "record.json"), "w") as f:
+        json.dump({"threads": torch.get_num_threads(),
+                   "cudnn": [torch.backends.cudnn.deterministic,
+                             torch.backends.cudnn.benchmark,
+                             torch.backends.cudnn.allow_tf32],
+                   "peak_reserved": torch.cuda.max_memory_reserved(),
+                   "env": {k: v for k, v in os.environ.items() if k.startswith(
+                       ("OMP", "MKL", "CUDA", "NCCL", "TORCH", "CUBLAS",
+                        "CUDNN", "PYTORCH"))}}, f)
+atexit.register(record)
+runpy.run_module("nelegan_tpu_torch.cli.train", run_name="__main__")
+"""
+# argv: the bytes to leave free, and "hold" or "busy"; prints "held" once
+# it holds its memory, then holds it (or multiplies matrices) until killed
+HUNT_BALLAST = """
+import sys, time, torch
+keep = int(sys.argv[1])
+free, _ = torch.cuda.mem_get_info()
+x = torch.empty(max(free - keep, 0), dtype=torch.uint8, device="cuda")
+a = torch.randn(8192, 8192, device="cuda") if sys.argv[2] == "busy" else None
+torch.cuda.synchronize()
+print("held", x.numel(), flush=True)
+while True:
+    if a is not None:
+        b = a @ a
+        torch.cuda.synchronize()
+    else:
+        time.sleep(1)
+"""
+SCORE_NAMES = ("siib", "haspi", "estoi", "pesq", "visqol")
+
+
+def hunt_args(corpus: str, run: str) -> list:
+    return ["--train-clean", f"{corpus}/Train/Clean",
+            "--train-noise", f"{corpus}/Train/Noise",
+            "--test-clean", f"{corpus}/Test/Clean",
+            "--test-noise", f"{corpus}/Test/Noise",
+            "--epochs", "1", "--batch-size", "4", "--num-sampling", "8",
+            "--num-valid", str(TRAINER_SMALL_TEST),
+            "--metrics", ",".join(TRAINER_SMALL_METRICS),
+            "--device", "cuda", "--output", f"{run}/output",
+            "--checkpoints", f"{run}/chkpt", "--log-file", f"{run}/log.txt"]
+
+
+def hunt_start(corpus: str, run: str, dp: bool) -> subprocess.Popen:
+    """HUNT_CLI on the small corpus into `run`: plain, or with `dp` under
+    `torch.distributed.run --standalone --nproc-per-node 1` with
+    --data-parallel (a world of one over NCCL)."""
+    os.makedirs(run, exist_ok=True)
+    script = Path(run, "hunt_cli.py")
+    script.write_text(HUNT_CLI)
+    cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", str(script), "--data-parallel"] if dp
+           else [sys.executable, str(script)])
+    path = os.pathsep.join(filter(None, (str(REPO),
+                                         os.environ.get("PYTHONPATH"))))
+    with open(f"{run}/console.txt", "w") as out:
+        return subprocess.Popen(
+            cmd + hunt_args(corpus, run), cwd=REPO, stdout=out,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, NELE_HUNT_DIR=run, PYTHONPATH=path))
+
+
+def hunt_wait(procs: dict) -> dict:
+    """Each run's exit code and its record.json."""
+    out = {}
+    for run, p in procs.items():
+        try:
+            code = p.wait(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        with open(f"{run}/console.txt") as f:
+            text = f.read()
+        try:
+            with open(f"{run}/record.json") as f:
+                rec = json.load(f)
+        except FileNotFoundError:
+            rec = None
+        out[run] = {"code": code, "record": rec,
+                    "tail": text[-600:] if code else ""}
+    return out
+
+
+def tensor_diffs(a: dict, b: dict) -> list:
+    """(name, elements that differ, of how many, max |a - b|, max |a|) of
+    each tensor of `a` that is not bit-equal to `b`'s."""
+    out = []
+    for k, x in a.items():
+        y = b[k]
+        if not torch.equal(x, y):
+            d = (x.double() - y.double()).abs()
+            out.append((k, int((x != y).sum()), x.numel(), float(d.max()),
+                        float(x.double().abs().max())))
+    return out
+
+
+def hunt_diff(a: str, b: str) -> dict:
+    """Run b against run a: the enhanced wavs byte for byte, each replay
+    file's scores by metric, log.txt, history and the state (the names of
+    the tensors that differ), the first difference of each named."""
+    def wavs(run):
+        root = f"{run}/output"
+        return {os.path.relpath(p, root): p for p in sorted(glob.glob(
+            f"{root}/**/*.wav", recursive=True))}
+    wa, wb = wavs(a), wavs(b)
+    differ = [k for k in wa if k not in wb
+              or Path(wa[k]).read_bytes() != Path(wb[k]).read_bytes()]
+    (sa, ka, _, ra, xa), (sb, kb, _, rb, xb) = map(cli_checkpoint, (a, b))
+    fa, fb = _flat_tensors(sa), _flat_tensors(sb)
+    ia, ib = (torch.load(f"{r}/init.pt", weights_only=True) for r in (a, b))
+    init = tensor_diffs(*({f"{m}.{k}": v for m in x for k, v in x[m].items()}
+                          for x in (ia, ib)))
+    scores = []
+    for ea, eb in zip(json.loads(ra), json.loads(rb)):
+        for m, x, y in zip(SCORE_NAMES, ea["scores"], eb["scores"]):
+            if x != y:
+                scores.append((ea["name"], m, x, y))
+    with open(f"{a}/log.txt") as f, open(f"{b}/log.txt") as g:
+        log = f.read() == g.read()
+    states = tensor_diffs(fa, fb)
+    return {"equal": not (differ or scores or states or init) and log
+            and xa["history"] == xb["history"]
+            and torch.equal(ka.get_state(), kb.get_state()),
+            "init_differs": init[:6], "wavs": len(wa),
+            "wavs_differ": len(differ), "first_wavs": differ[:4],
+            "scores_differ": len(scores), "first_scores": scores[:4],
+            "log": log, "history": xa["history"] == xb["history"],
+            "tensors_differ": len(states), "first_tensors": states[:6]}
+
+
+def fault_hunt(rounds: int) -> dict:
+    """Part of no phase: the experiments above; prints and returns each
+    run against the first lone run.  The output directories of a run that
+    differs are copied under build/fault_hunt."""
+    kernels.build()             # before the CLIs start: no build race
+    BUILD.mkdir(parents=True, exist_ok=True)
+    keep_dir = BUILD / "fault_hunt"
+    res = {"runs": {}}
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        corpus = f"{tmp}/corpus"
+        write_trainer_corpus(corpus, TRAINER_SMALL_TRAIN, TRAINER_SMALL_TEST,
+                             seed=14)
+        ref = f"{tmp}/alone0"
+
+        def record(form, waits):
+            for run, w in waits.items():
+                name = os.path.basename(run)
+                d = (hunt_diff(ref, run) if w["code"] == 0 and run != ref
+                     else None)
+                res["runs"][name] = {"form": form, **w, "vs_alone0": d}
+                print(f"fault hunt: {name} ({form}): {res['runs'][name]}",
+                      flush=True)
+                if d is not None and not d["equal"]:
+                    # the wavs, logs and records; not the checkpoints
+                    for r in (run, ref):
+                        shutil.copytree(
+                            r, keep_dir / os.path.basename(r),
+                            dirs_exist_ok=True,
+                            ignore=shutil.ignore_patterns("chkpt", "*.pt"))
+
+        for i in (0, 1):
+            run = f"{tmp}/alone{i}"
+            record("alone", hunt_wait({run: hunt_start(corpus, run, False)}))
+        peak = res["runs"]["alone0"]["record"]["peak_reserved"]
+        # the CLI's peak plus its context, and a little or much room
+        for tag, keep, mode in (("tightest", peak + (1 << 29), "hold"),
+                                ("tight", peak + (1 << 30), "hold"),
+                                ("roomy", peak + (4 << 30), "hold"),
+                                ("busy", 60 << 30, "busy")):
+            ballast = subprocess.Popen(
+                [sys.executable, "-c", HUNT_BALLAST, str(keep), mode],
+                cwd=REPO, stdout=subprocess.PIPE, text=True)
+            try:
+                held = ballast.stdout.readline().split()
+                free = torch.cuda.mem_get_info()[0]
+                run = f"{tmp}/ballast_{tag}"
+                waits = hunt_wait({run: hunt_start(corpus, run, False)})
+                waits[run].update(ballast_bytes=int(held[1]) if held else 0,
+                                  free_at_start=free)
+                record(f"ballast {mode}", waits)
+            finally:
+                ballast.kill()
+                ballast.wait()
+        for i in range(rounds):
+            dp, plain = f"{tmp}/side{i}_dp", f"{tmp}/side{i}_plain"
+            procs = {dp: hunt_start(corpus, dp, True),
+                     plain: hunt_start(corpus, plain, False)}
+            probe = nccl_refusal(torch.device("cuda"))
+            waits = hunt_wait(procs)
+            waits[dp]["probe_refused"] = probe["refused"]
+            record("side by side", waits)
+            d = (hunt_diff(dp, plain) if all(w["code"] == 0 for w in
+                                             waits.values()) else None)
+            res["runs"][f"side{i}_pair"] = {"form": "dp against plain",
+                                            "diff": d}
+            print(f"fault hunt: side{i} dp against plain: {d}", flush=True)
+    forms = collections.defaultdict(lambda: [0, 0, 0])
+    for r in res["runs"].values():
+        d = r.get("vs_alone0", r.get("diff"))
+        c = forms[r["form"]]
+        c[0] += 1
+        c[1] += d is not None and not d["equal"]
+        c[2] += d is None and r.get("code", 0) != 0
+    res["counts"] = {k: dict(zip(("runs", "differ", "failed"), v))
+                     for k, v in forms.items()}
+    return res
+
+
 def parallel_phase(dev, tmp: str, single: dict) -> dict:
     """Data parallelism over torch.distributed (`parallel/`), float32,
     TF32 off, deterministic cuDNN; every check raises.
@@ -3978,6 +4369,7 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
         args=(trained_config(), corpus, f"{tmp}/dp", single["scored"]),
         devices=[dev] * DP_WORLD, timeout=600)
     world_s = time.perf_counter() - t0
+    tp = tp_check([r["tp"] for r in ranks])
     r0 = ranks[0]
     for r in ranks:             # IMCRA and linrec, every rank and epoch
         check_epoch_launches(types.SimpleNamespace(
@@ -4093,6 +4485,7 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
     res = {"nccl_two_ranks_one_card": nccl, "nccl_world_of_one": nccl_one,
            "scoring_share": share, "world_seconds": world_s,
            "vs_single": vs_single, "timing": timing, "cli_world_of_one": cli,
+           "tp": tp,
            "launches_per_rank": [{k: sum(rec["launches"][k]
                                          for rec in r["epochs"]
                                          if rec["epoch"] <= DP_EPOCHS)
@@ -4110,6 +4503,11 @@ def main() -> None:
     print(f"card: {card}")
     dev = torch.device("cuda")
     disable_tf32()
+
+    if sys.argv[1:2] == ["--fault-hunt"]:
+        print(json.dumps({"fault_hunt": fault_hunt(int(sys.argv[2]))}))
+        print(card)
+        return
 
     secs = kernels.build()
     print(f"built {sorted(kernels.KERNELS)} in {secs:.2f} s")
@@ -4143,6 +4541,8 @@ def main() -> None:
         rec["direct_launches"] = directed["launches"][rec["name"]]
         rec["parallel_launches_per_rank"] = [
             r[rec["name"]] for r in paralleled["launches_per_rank"]]
+        rec["tp_launches_per_rank"] = [
+            r[rec["name"]] for r in paralleled["tp"]["launches_per_rank"]]
     # linrec's path is scoring (PESQ's gain memory through cli/infer
     # --metrics), linrec_bwd's the direct step (PESQ's gradient)
     records[2]["launches"] = scored["launches"]["linrec"]

@@ -51,17 +51,9 @@ visqol_proxy = visqol_speech
 visqol_proxy_16k = visqol_speech_16k
 
 ALL_METRICS = ("siib", "haspi", "estoi", "pesq", "visqol")
-ROADMAP_ITEM = ("ROADMAP.md, Open items, section 1, item 6: tensor "
-                "parallelism of the discriminator trunk (the mesh's model "
-                "axis)")
 # the longest tiled SIIB row (~131 s): one mostly silent utterance would
 # otherwise size every row of its chunk
 MAX_TILED = 2_097_152
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to nelegan_tpu_torch "
-                               f"yet; see {ROADMAP_ITEM}")
 
 
 def _check_metrics(metrics: Sequence[str]) -> None:
@@ -194,13 +186,14 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
         rows too ("raw-enh", int16), masked to `n_valid` on the device.  The
         SIIB tiling decisions go to its `chunk_cache`.
 
-    With a data-parallel `mesh` (`parallel.make_mesh`) every rank passes
-    the whole corpus, as the reference package's mesh path takes it: a
-    chunk is `vmap_chunk * world` utterances wide, padded to a multiple of
-    the world by repeating its last row, and each rank scores its rows of
-    it (the pool's or the mapping's entries too; a mapping keys the rank's
-    values by the whole chunk).  The scores are all-gathered in one
-    collective, so every rank returns the whole list in input order.
+    With a `mesh` (`parallel.make_mesh`) every rank passes the whole
+    corpus, as the reference package's mesh path takes it: a chunk is
+    `vmap_chunk * world` utterances wide (world: the data axis's size),
+    padded to a multiple of the world by repeating its last row, and each
+    rank scores its data coordinate's rows of it (the pool's or the
+    mapping's entries too; a mapping keys the rank's values by the whole
+    chunk).  The scores are all-gathered in one collective, so every rank
+    returns the whole list in input order.
     """
     _check_metrics(metrics)
     pool = clean_cache if hasattr(clean_cache, "ensure") else None
@@ -209,7 +202,7 @@ def score_corpus(clean_list, noise_list, enhanced_list, fs: int = 16000,
     assert fs == 16000
     dev = (mesh.device if mesh is not None and device is None
            else resolve_device(device))
-    world = 1 if mesh is None else mesh.world
+    world = 1 if mesh is None else mesh.data_size
     n_utts = len(clean_list)
     lens = [min(len(c), len(n), len(e)) for c, n, e in
             zip(clean_list, noise_list, enhanced_list)]

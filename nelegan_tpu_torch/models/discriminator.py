@@ -18,6 +18,12 @@ utterance's valid output columns only, ``max(frames - shrink, 1)`` of them
 (64 - 20 = 44): a conv output whose receptive field reaches a padded frame
 never enters the mean.
 
+Sharded over a mesh's model axis (`parallel.mesh.shard_params`), every
+layer whose output width divides by it computes its own channels
+(column-parallel, `models/spectral_norm.py`); the forward gathers them
+after the activation, so the pool, the next layer's input and the
+sigmoid are whole on every rank.
+
 Under a reduced mixed-precision policy (``compute_dtype="bfloat16"``) the
 five trunk convolutions compute in that dtype; the trunk's output is cast
 back to at least float32 before the pool, and the three spectral-norm heads
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from nelegan_tpu_torch.config import policy_dtype
 from nelegan_tpu_torch.models.spectral_norm import SNConv2d, SNLinear
+from nelegan_tpu_torch.parallel.tensor import gather_from_model
 
 
 class _Discriminator(nn.Module):
@@ -72,7 +79,8 @@ class _Discriminator(nn.Module):
         """x [B, C, 64, T] band images; frames [B] valid frame counts (None:
         every frame valid) -> scores [B, n_scores] in (0, 1)."""
         for layer in self.layers:
-            x = F.leaky_relu(layer(x), self.leaky_slope)
+            x = gather_from_model(F.leaky_relu(layer(x), self.leaky_slope),
+                                  layer.tp, 1)
         # the pool's reduction over ~T'*H elements accumulates in >= float32
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if frames is None:
@@ -84,9 +92,11 @@ class _Discriminator(nn.Module):
             denom = (x.shape[2] * valid).to(x.dtype)
             pooled = (torch.sum(x * mask[:, None, None, :], dim=(2, 3))
                       / denom[:, None])
-        h = F.leaky_relu(self.fc1(pooled), self.leaky_slope)
-        h = F.leaky_relu(self.fc2(h), self.leaky_slope)
-        return torch.sigmoid(self.fc3(h))
+        h = pooled
+        for fc in (self.fc1, self.fc2):
+            h = gather_from_model(F.leaky_relu(fc(h), self.leaky_slope),
+                                  fc.tp, -1)
+        return torch.sigmoid(gather_from_model(self.fc3(h), self.fc3.tp, -1))
 
 
 class IntelDiscriminator(_Discriminator):

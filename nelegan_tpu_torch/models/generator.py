@@ -20,6 +20,12 @@ dtype (input, weight and bias cast, as flax's ``dtype=`` casts them); the
 parameters, the cLN statistics and the output mask stay float32.  The
 casts are explicit, not ``torch.autocast``, so they sit where the reference
 package puts them on every device.
+
+Sharded over a mesh's model axis (`parallel.mesh.shard_params`), each
+causal conv, its cLN and ``fc1``/``fc2`` hold their output channels'
+part and compute it from the whole input (`parallel.tensor.to_model`);
+the cLN sums its channel sums over the model group, and the forward
+gathers each block's and each dense layer's channels.
 """
 from __future__ import annotations
 
@@ -28,13 +34,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nelegan_tpu_torch.config import policy_dtype
+from nelegan_tpu_torch.parallel.tensor import (gather_from_model,
+                                               reduce_in_model, to_model)
 
 
 class CumulativeLayerNorm(nn.Module):
     """Causal (cumulative-over-time) layer norm on [B, C, T]
     (reference model.py:168-205).  Statistics are taken in at least float32
     with the reference package's formula
-    ``var = (cum_pow - 2*mean*cum_sum)/cnt + mean^2``."""
+    ``var = (cum_pow - 2*mean*cum_sum)/cnt + mean^2``.  Sharded, the
+    channel sums are summed over the model group."""
+
+    MODEL_AXIS = {"gain0": 1, "bias0": 1}
+    tp = None
 
     def __init__(self, features: int, eps: float = 1e-8):
         super().__init__()
@@ -46,8 +58,13 @@ class CumulativeLayerNorm(nn.Module):
         sd = torch.promote_types(x.dtype, torch.float32)
         c, t = x.shape[1], x.shape[2]
         x32 = x.to(sd)
-        cum_sum = torch.cumsum(x32.sum(dim=1), dim=-1)            # [B, T]
-        cum_pow = torch.cumsum((x32 * x32).sum(dim=1), dim=-1)    # [B, T]
+        s, p = x32.sum(dim=1), (x32 * x32).sum(dim=1)             # [B, T]
+        if self.tp is not None:
+            s, p = to_model(reduce_in_model(torch.stack([s, p]), self.tp),
+                            self.tp)
+            c *= self.tp.model_parallel
+        cum_sum = torch.cumsum(s, dim=-1)
+        cum_pow = torch.cumsum(p, dim=-1)
         cnt = (c * torch.arange(1, t + 1, device=x.device)).to(sd)
         mean = cum_sum / cnt
         var = (cum_pow - 2.0 * mean * cum_sum) / cnt + mean * mean
@@ -63,6 +80,9 @@ class CausalConv(nn.Module):
     the input, weight and bias are cast to; the bias is added after the
     conv, in that dtype, as flax's `nn.Conv(dtype=...)` adds it."""
 
+    MODEL_AXIS = {"conv.weight": 0, "conv.bias": 0}
+    tp = None
+
     def __init__(self, in_ch: int, out_ch: int, kernel: int,
                  w_gain: float = 1.0,
                  compute_dtype: torch.dtype | None = None):
@@ -73,7 +93,7 @@ class CausalConv(nn.Module):
         nn.init.xavier_uniform_(self.conv.weight, gain=w_gain)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x, (self.kernel - 1, 0))
+        x = F.pad(to_model(x, self.tp), (self.kernel - 1, 0))
         cd = self.compute_dtype
         if cd is None:
             return self.conv(x)
@@ -81,10 +101,18 @@ class CausalConv(nn.Module):
         return y + self.conv.bias.to(cd)[:, None]
 
 
-def _dense(fc: nn.Linear, x: torch.Tensor,
+class _Dense(nn.Linear):
+    """`nn.Linear` that `shard_params` can shard on its output features."""
+
+    MODEL_AXIS = {"weight": 0, "bias": 0}
+    tp = None
+
+
+def _dense(fc: _Dense, x: torch.Tensor,
            cd: torch.dtype | None) -> torch.Tensor:
     """`fc(x)`, computed in `cd` (None: no cast) with the bias added after
     the product, as flax's `nn.Dense(dtype=...)` computes it."""
+    x = to_model(x, fc.tp)
     if cd is None:
         return fc(x)
     return F.linear(x.to(cd), fc.weight.to(cd)) + fc.bias.to(cd)
@@ -116,8 +144,8 @@ class Generator(nn.Module):
                           nn.Identity(),
                           CumulativeLayerNorm(o), nn.LeakyReLU(leaky_slope))
             for i, o, k, g in zip(ins, outs, ks, gains))
-        self.fc1 = nn.Linear(n_bands, n_bands)
-        self.fc2 = nn.Linear(n_bands, n_bands)
+        self.fc1 = _Dense(n_bands, n_bands)
+        self.fc2 = _Dense(n_bands, n_bands)
 
     @classmethod
     def from_config(cls, model_cfg) -> "Generator":
@@ -161,10 +189,11 @@ class Generator(nn.Module):
         if cd is not None:
             x = x.to(cd)
         for block in self.convolutions:
-            x = block(x)
+            x = gather_from_model(block(x), block[0].tp, 1)
         x = x.transpose(1, 2)                                     # [B, T, 64]
-        x = F.leaky_relu(_dense(self.fc1, x, cd), self.leaky_slope)
-        x = _dense(self.fc2, x, cd)
+        x = gather_from_model(F.leaky_relu(_dense(self.fc1, x, cd),
+                                           self.leaky_slope), self.fc1.tp, -1)
+        x = gather_from_model(_dense(self.fc2, x, cd), self.fc2.tp, -1)
         # exp(bound*tanh) in >= float32: the mask feeds beta^2 energy sums
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         return torch.exp(self.mask_bound * torch.tanh(x))

@@ -26,6 +26,15 @@ across steps); only after ``weight / sigma`` are the input, the normalised
 weight and the bias cast to it, the bias added after the product
 (`nelegan_tpu/models/spectral_norm.py:55-109`).
 
+Sharded over a mesh's model axis (`parallel.mesh.shard_params`), a layer
+holds rows of ``weight_orig`` and of ``bias``, its output channels, while
+u and v stay whole on every rank.  The power iteration runs on the rows:
+v = l2norm(sum_i W_i^T u_i), one all-reduce over the model group;
+u = l2norm(gather(W_i v)), and sigma = u . gather(W_i v), the whole
+matrix's.  sigma enters each rank's rows through `parallel.tensor.to_model`,
+so its gradient sums every rank's; the layer's input enters the same way.
+The layer returns its own channels; the model gathers them.
+
 Unlike `torch.nn.utils.spectral_norm` the initial v is ``l2norm(W^T u)``,
 one half step from u, as the reference package initialises it; weights are
 he-uniform and biases zero (`nelegan_tpu/models/spectral_norm.py:75-77`).
@@ -38,6 +47,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nelegan_tpu_torch.parallel.tensor import gather_from_model, to_model
+
 _EPS = 1e-12
 
 
@@ -47,6 +58,9 @@ def _l2norm(v: torch.Tensor) -> torch.Tensor:
 
 class _SpectralNorm(nn.Module):
     """Parameters, buffers and power iteration shared by both layers."""
+
+    MODEL_AXIS = {"weight_orig": 0, "bias": 0}   # output rows
+    tp = None                                    # the mesh, once sharded
 
     def __init__(self, weight_shape: tuple,
                  compute_dtype: torch.dtype | None = None):
@@ -81,24 +95,34 @@ class _SpectralNorm(nn.Module):
         return self.weight_orig.reshape(self.weight_orig.shape[0], -1)
 
     def normalized_weight(self) -> torch.Tensor:
-        """weight_orig / sigma; in training mode after one power-iteration
-        step that updates the stored (u, v)."""
-        wmat = self._wmat()
+        """weight_orig / sigma (this rank's rows of it, sharded); in
+        training mode after one power-iteration step that updates the
+        stored (u, v)."""
+        wmat, tp = self._wmat(), self.tp
         if self.training:
             with torch.no_grad():
-                v = _l2norm(wmat.t() @ self.weight_u)
-                u = _l2norm(wmat @ v)
+                u = self.weight_u
+                if tp is None:
+                    v = _l2norm(wmat.t() @ u)
+                else:
+                    u = u[tp.model_slice(u.numel())]
+                    v = _l2norm(tp.model_all_reduce(wmat.t() @ u))
+            wv = gather_from_model(wmat @ v, tp, 0)
+            with torch.no_grad():
+                u = _l2norm(wv.detach())
                 self.weight_u.copy_(u)
                 self.weight_v.copy_(v)
         else:
             u, v = self.weight_u, self.weight_v
-        sigma = torch.dot(u, wmat @ v)
+            wv = gather_from_model(wmat @ v, tp, 0)
+        sigma = to_model(torch.dot(u, wv), tp)
         return self.weight_orig / sigma
 
     def _forward_with(self, op, x: torch.Tensor) -> torch.Tensor:
         """`op(x, w_sn, bias)`; under a reduced policy `op(x, w_sn)` in that
-        dtype, then the bias in it."""
+        dtype, then the bias in it.  Sharded, this rank's channels."""
         w = self.normalized_weight()
+        x = to_model(x, self.tp)
         cd = self.compute_dtype
         if cd is None:
             return op(x, w, self.bias)

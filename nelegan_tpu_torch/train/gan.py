@@ -30,7 +30,17 @@ sum, and one all-reduce per optimizer step sums the gradients together
 with the sums and the row-weight denominators, so the update, the masking
 of padding rows and the returned loss are those of the whole batch.  The
 power iteration, the cumulative LayerNorm and the energy normalisation
-depend on the weights or on one row, so they need no collective.
+depend on the weights or on one row, so they need no collective over the
+data axis.
+
+A state sharded over the mesh's model axis (`parallel.shard_params`)
+trains with the same steps: its layers compute their channels and
+exchange them over the model group (`parallel/tensor.py`), every rank of
+a model group passes the same rows and computes the same loss, and the
+step's all-reduce runs over the data group only (over the model group
+too, it would count each row model_parallel times).  In a G step the
+gradient that reaches the enhanced bands crosses the frozen
+discriminators' sharded layers, whose `to_model` sums it whole.
 """
 from __future__ import annotations
 
@@ -74,6 +84,12 @@ class TrainState:
     @property
     def dtype(self) -> torch.dtype:
         return self.gen.fc1.weight.dtype
+
+    def parts(self) -> dict:
+        """Each model with its optimiser, keyed as in `state_dict` (the
+        optimiser's key adds "_opt")."""
+        return {"gen": (self.gen, self.gen_opt), "d": (self.d, self.d_opt),
+                "dq": (self.dq, self.dq_opt)}
 
     def state_dict(self) -> dict:
         """Live references to every tensor of the state (module state dicts
@@ -170,9 +186,9 @@ def _update(opt: torch.optim.Adam, loss_sum: torch.Tensor,
     Without a mesh `loss_sum` is the loss itself.  With one it is the
     rank's share of the loss's numerator (the losses' column means summed
     over its rows, undivided): the gradients, that share and the rank's
-    row-weight sum `rv.sum()` are summed over the ranks in one all-reduce,
-    and the gradients divided by the world's denominator, clamped to >= 1
-    as a single device clamps it."""
+    row-weight sum `rv.sum()` are summed over the data group in one
+    all-reduce, and the gradients divided by the world's denominator,
+    clamped to >= 1 as a single device clamps it."""
     opt.zero_grad(set_to_none=True)
     loss_sum.backward()
     if mesh is None:

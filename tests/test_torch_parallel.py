@@ -3,16 +3,22 @@
 One world of two gloo ranks on the CPU, spawned once for the module
 through `parallel/launch.py`, runs each module's data-parallel path: the
 mesh's collectives; the dp G and D steps (`d_step`, `d_steps_scan`) at
-float64, with a ragged batch; `score_corpus` over the mesh, cold and warm
-through a `CleanSidePool`; and `Trainer(data_parallel=True)`, straight and
-resumed.  The references are computed here in the parent: the JAX
-package's single-device steps and the port's unsharded calls.  A second,
-small world checks that a rank that raises ends the world with an error.
+float64, with a ragged batch, and the same steps tensor-parallel on a
+second mesh over the same ranks (model axis 2, `shard_params`);
+`score_corpus` over the mesh, cold and warm through a `CleanSidePool`; and
+`Trainer(data_parallel=True)`, straight and resumed.  A world of four
+ranks takes the steps on a data 2 x model 2 mesh.  The references are
+computed here in the parent: the JAX package's single-device steps and
+the port's unsharded calls; `shard_params`' placement is held against the
+JAX package's `_param_spec` without a world.  A further small world
+checks that a rank that raises ends the world with an error.
 
 JAX is imported inside the parent's fixtures only: the ranks import this
 module to find their function and do not need it.  Torch runs on one
 thread in every process.
 """
+import copy
+import functools
 import glob
 import os
 import shutil
@@ -27,8 +33,9 @@ import torch
 from nelegan_tpu_torch import metrics
 from nelegan_tpu_torch.config import Config, ModelConfig, TrainConfig
 from nelegan_tpu_torch.metrics.clean_pool import CleanSidePool
-from nelegan_tpu_torch.parallel import (all_gather_rows, all_reduce_sum,
-                                        assert_replicated, launch, make_mesh,
+from nelegan_tpu_torch.parallel import (Mesh, all_gather_rows,
+                                        all_reduce_sum, assert_replicated,
+                                        gather_params, launch, make_mesh,
                                         replica_digest, replicate,
                                         shard_batch, shard_params)
 from nelegan_tpu_torch.parallel.mesh import local_cuda_device
@@ -46,6 +53,11 @@ SMALL = dict(gen_hidden=32, gen_blocks=2, disc_channels=(4, 8),
 STEP_CFG = Config(model=ModelConfig(**SMALL))
 FULL, RAGGED = np.ones(4), np.array([1.0, 1.0, 1.0, 0.0])
 STEP_RTOL = 1e-9            # the models' float64 bar (COMPONENTS.md)
+TP = 2                      # the model axis of the tensor-parallel steps
+# the JAX TrainState's fields that the reference package shards over its
+# model axis (tools/measure_tp.py); the spectral u and v stay replicated
+SHARDED_FIELDS = ("gen_params", "gen_opt", "d_params", "d_opt",
+                  "dq_params", "dq_opt")
 # score_corpus: five utterances in two buckets, chunks of 2 a rank
 SCORE_METRICS = ("estoi", "pesq", "visqol", "haspi")
 SCORE_LENS = (12000, 11000, 10000, 9000, 8000)
@@ -87,8 +99,9 @@ def _tensors(state) -> dict:
 # ------------------------------------------------------------ the ranks
 def _rank_mesh(mesh) -> dict:
     """shard_batch / all_gather_rows round trip (a column-major leaf, an
-    int16 leaf, an array), all_reduce_sum, replicate and the digest check,
-    the refusal of tensor parallelism."""
+    int16 leaf, an array), all_reduce_sum, replicate and the digest check;
+    a model axis that does not divide the world, and a tensor-parallel
+    mesh's rows."""
     r = mesh.rank
     x = torch.arange(24, dtype=torch.float64).reshape(4, 6)
     col = x.t().contiguous().t()                       # column-major
@@ -111,29 +124,38 @@ def _rank_mesh(mesh) -> dict:
         diverged = str(e)
     replicate(mesh, state)
     assert_replicated(mesh, state)
-    refusals = []
-    for call in (lambda: make_mesh(model_parallel=2),
-                 lambda: shard_params(mesh, {})):
-        try:
-            call()
-        except NotImplementedError as e:
-            refusals.append(str(e))
+    try:
+        make_mesh(model_parallel=3, devices=["cpu"] * mesh.world)
+        indivisible = None
+    except ValueError as e:
+        indivisible = str(e)
+    tp = make_mesh(model_parallel=WORLD, devices=["cpu"] * mesh.world)
     return {"rows": mine["x"], "back": back, "col_strides": (
         back["col"].stride(), col.stride()), "sums": sums, "rep": rep,
         "diverged": diverged, "state_step_g": state.step_g,
-        "digest": replica_digest(state), "refusals": refusals}
+        "digest": replica_digest(state), "indivisible": indivisible,
+        "tp_coords": (tp.data_size, tp.data_rank, tp.model_rank),
+        "tp_rows": shard_batch(tp, x),
+        "tp_back": all_gather_rows(tp, shard_batch(tp, x))}
 
 
-def _rank_steps(mesh, sd, inputs) -> dict:
+def _rank_steps(mesh, sd, inputs, model_parallel=1) -> dict:
     """Two G steps (full, ragged), two `d_step`s (full, ragged) and one
     `d_steps_scan` over three groups (full, ragged, skipped), each rank on
-    its rows; -> losses, the state after the G steps and at the end, the
-    all-reduces made."""
+    its rows; with a `model_parallel` > 1, on a second mesh of that model
+    axis, the state sharded over it.  -> losses, the whole state after the
+    G steps and at the end (`gather_params`), the all-reduces made, the
+    sharded state's replica check (and that of a copy whose replicated u
+    rank 1 changed), and the shape of a sharded weight."""
+    if model_parallel > 1:
+        mesh = make_mesh(model_parallel=model_parallel,
+                         devices=["cpu"] * mesh.world)
     state = gan.init_train_state(STEP_CFG, 0, "cpu", dtype=torch.float64)
     state.load_state_dict(tree_map(
         lambda a: torch.from_numpy(a) if isinstance(a, np.ndarray) else a,
         sd))
     replicate(mesh, state)
+    shard_params(mesh, state)
     cb, nb, eb, fr, img3, img2, tg, tq = inputs
     losses = []
     for rv in (FULL, RAGGED):
@@ -141,7 +163,7 @@ def _rank_steps(mesh, sd, inputs) -> dict:
             state, *shard_batch(mesh, (cb, nb, fr)), STEP_CFG,
             row_valid=shard_batch(mesh, rv), mesh=mesh)
         losses.append(float(loss))
-    after_g = _tensors(state)
+    after_g = _tensors(gather_params(mesh, state))
     for i, rv in enumerate((FULL, RAGGED)):
         state, ld, lq = gan.d_step(
             state, *shard_batch(mesh, (img3, img2, fr, tg[i], tq[i])),
@@ -156,8 +178,20 @@ def _rank_steps(mesh, sd, inputs) -> dict:
         np.stack([shard_batch(mesh, rv) for rv in (FULL, RAGGED, FULL)]),
         np.array([True, True, False]), STEP_CFG, mesh=mesh)
     losses += lvals.reshape(-1).tolist()
-    return {"losses": losses, "after_g": after_g, "final": _tensors(state),
-            "all_reduces": mesh.count("all_reduce:")}
+    assert_replicated(mesh, state)
+    bent = copy.deepcopy(state)
+    if mesh.rank == 1:
+        bent.d.layers[0].weight_u.add_(1.0)
+    try:
+        assert_replicated(mesh, bent)
+        diverged = None
+    except RuntimeError as e:
+        diverged = str(e)
+    return {"losses": losses, "after_g": after_g,
+            "final": _tensors(gather_params(mesh, state)),
+            "all_reduces": mesh.count("all_reduce:"),
+            "tp_collectives": mesh.count("tp:"), "diverged": diverged,
+            "d_weight_shape": tuple(state.d.layers[1].weight_orig.shape)}
 
 
 def _rank_scores(mesh, triple) -> dict:
@@ -279,6 +313,7 @@ def _rank_all(mesh, step_args, triple, corpus, root) -> dict:
     out, seconds = {}, {}
     for name, fn, args in (("mesh", _rank_mesh, ()),
                            ("steps", _rank_steps, step_args),
+                           ("tp_steps", _rank_steps, step_args + (TP,)),
                            ("scores", _rank_scores, (triple,)),
                            ("trainer", _rank_trainer, (corpus, root))):
         t0 = time.process_time()
@@ -295,35 +330,45 @@ def _rank_fails(mesh):
 
 
 # ------------------------------------------------------------ the parent
-def _jax_state_from_port(state, jcfg):
-    """The JAX package's TrainState holding the port's float64 `state`:
-    the inverse of `models.convert.train_state_from_jax`, read off by
-    converting a probe state whose every float element holds its own
-    index (no JAX initialisation to compile: only its shapes are traced)."""
-    import functools
-
+def _index_probe(jcfg):
+    """(a JAX TrainState of numpy leaves whose every float element holds
+    its own index, its leaves, their treedef, and per leaf its
+    (TrainState field, first index, size), None for counters and keys).
+    No JAX initialisation is compiled: only its shapes are traced."""
     import jax
 
     from nelegan_tpu.train import gan as jgan
-    from nelegan_tpu_torch.models.convert import train_state_from_jax
 
     shapes = jax.eval_shape(functools.partial(jgan.init_train_state,
                                               cfg=jcfg),
                             jax.random.PRNGKey(0))
-    leaves, treedef = jax.tree.flatten(shapes)
     probe, spans, n = [], [], 0
-    for leaf in leaves:
-        size = int(np.prod(leaf.shape))
-        if np.issubdtype(leaf.dtype, np.floating):
-            probe.append(np.arange(n, n + size, dtype=np.float64).reshape(
-                leaf.shape))
-            spans.append((n, size))
-            n += size
-        else:                   # counters and keys: 0 in a fresh state
-            probe.append(np.zeros(leaf.shape, leaf.dtype))
-            spans.append(None)
-    where = _tensors(train_state_from_jax(jax.tree.unflatten(treedef, probe),
-                                          STEP_CFG, "cpu"))
+    for field in shapes._fields:
+        for leaf in jax.tree.leaves(getattr(shapes, field)):
+            size = int(np.prod(leaf.shape))
+            if np.issubdtype(leaf.dtype, np.floating):
+                probe.append(np.arange(n, n + size, dtype=np.float64)
+                             .reshape(leaf.shape))
+                spans.append((field, n, size))
+                n += size
+            else:               # counters and keys: 0 in a fresh state
+                probe.append(np.zeros(leaf.shape, leaf.dtype))
+                spans.append(None)
+    treedef = jax.tree.structure(shapes)
+    return jax.tree.unflatten(treedef, probe), probe, treedef, spans
+
+
+def _jax_state_from_port(state, jcfg):
+    """The JAX package's TrainState holding the port's float64 `state`:
+    the inverse of `models.convert.train_state_from_jax`, read off by
+    converting the index probe."""
+    import jax
+
+    from nelegan_tpu_torch.models.convert import train_state_from_jax
+
+    probe_state, probe, treedef, spans = _index_probe(jcfg)
+    n = sum(span[2] for span in spans if span is not None)
+    where = _tensors(train_state_from_jax(probe_state, STEP_CFG, "cpu"))
     values = _tensors(state)
     flat, seen = np.zeros(n), np.zeros(n, bool)
     for k, idx in where.items():
@@ -335,7 +380,7 @@ def _jax_state_from_port(state, jcfg):
             seen[idx.astype(np.int64)] = True
     assert seen.all()
     return jax.tree.unflatten(treedef, [
-        p if span is None else flat[span[0]:span[0] + span[1]].reshape(
+        p if span is None else flat[span[1]:span[1] + span[2]].reshape(
             p.shape) for p, span in zip(probe, spans)])
 
 
@@ -438,8 +483,9 @@ def test_mesh_collectives(world):
     """shard_batch's rows, all_gather_rows back bit for bit (a
     column-major leaf keeps its layout, int16 and arrays too),
     all_reduce_sum, replicate (a tree; a TrainState that diverged on rank
-    1, caught by assert_replicated first), and the refusals of tensor
-    parallelism naming its ROADMAP item."""
+    1, caught by assert_replicated first); a model axis of 3 over two
+    ranks raises, and on a model axis of 2 the rows follow the data
+    coordinate."""
     ranks = [r["mesh"] for r in world[0]]
     x = np.arange(24, dtype=np.float64).reshape(4, 6)
     for rank, r in enumerate(ranks):
@@ -453,17 +499,21 @@ def test_mesh_collectives(world):
         assert r["rep"]["n"] == 0 and not r["rep"]["w"].any()
         assert "differs between the ranks" in r["diverged"]
         assert r["state_step_g"] == 0
-        assert len(r["refusals"]) == 2
-        assert all("tensor parallelism" in m and "ROADMAP.md" in m
-                   for m in r["refusals"])
+        assert "model_parallel=3 does not divide the 2 ranks" in \
+            r["indivisible"]
+        # model axis 2 over two ranks: one data coordinate, which holds
+        # every row on both ranks
+        assert r["tp_coords"] == (1, 0, rank)
+        np.testing.assert_array_equal(r["tp_rows"], x)
+        np.testing.assert_array_equal(r["tp_back"], x)
     np.testing.assert_array_equal(ranks[0]["digest"], ranks[1]["digest"])
 
 
-def test_dp_steps_match_jax_single_device(world, step_inputs):
-    """The dp G and D steps over two ranks (a full and a ragged batch;
-    `d_step` and `d_steps_scan`) equal the JAX package's single-device
-    steps within the float64 bar, losses and every state tensor; the ranks
-    hold the same bits; one all-reduce per optimizer step."""
+@pytest.fixture(scope="module")
+def jax_steps(step_inputs):
+    """The JAX package's single-device steps that `_rank_steps` takes:
+    (losses, the state after the G steps, the final state), the states as
+    `_tensors` of their conversion."""
     import jax
 
     from nelegan_tpu.train import gan as jgan
@@ -486,7 +536,14 @@ def test_dp_steps_match_jax_single_device(world, step_inputs):
     want += [0.0, 0.0]
     final = _tensors(train_state_from_jax(jax.tree.map(np.asarray, js),
                                           STEP_CFG, "cpu"))
-    ranks = [r["steps"] for r in world[0]]
+    return want, after_g, final
+
+
+def _match_jax(ranks, jax_steps) -> None:
+    """Every rank's `_rank_steps` result against the JAX package's steps
+    within the float64 bar, losses and every state tensor (parameters, u
+    and v, Adam moments), and the ranks bit-equal."""
+    want, after_g, final = jax_steps
     np.testing.assert_allclose(ranks[0]["losses"][:6], want[:6],
                                rtol=STEP_RTOL, atol=0)
     # d_steps_scan returns its losses in float32
@@ -505,13 +562,109 @@ def test_dp_steps_match_jax_single_device(world, step_inputs):
                 assert err <= STEP_RTOL * max(np.abs(v).max(), 1e-300), k
             else:
                 assert got[k] == v, k
-    for key in ("after_g", "final"):
-        for k, v in ranks[0][key].items():
-            np.testing.assert_array_equal(ranks[1][key][k], v, err_msg=k)
-    assert ranks[0]["losses"] == ranks[1]["losses"]
-    # 2 G steps, 2 d_steps and 2 scanned groups of two heads each
-    assert ranks[0]["all_reduces"] == ranks[1]["all_reduces"] == 2 + 4 + 4
+    for other in ranks[1:]:
+        for key in ("after_g", "final"):
+            for k, v in ranks[0][key].items():
+                np.testing.assert_array_equal(other[key][k], v, err_msg=k)
+        assert other["losses"] == ranks[0]["losses"]
+    # 2 G steps, 2 d_steps and 2 scanned groups of two heads each: one
+    # all-reduce over the data group per optimizer step
+    assert all(r["all_reduces"] == 2 + 4 + 4 for r in ranks)
+    # a replicated u that one rank changed is caught
+    assert all("differs between the ranks" in r["diverged"] for r in ranks)
+
+
+def test_dp_steps_match_jax_single_device(world, jax_steps):
+    """The dp G and D steps over two ranks (a full and a ragged batch;
+    `d_step` and `d_steps_scan`) equal the JAX package's single-device
+    steps within the float64 bar, losses and every state tensor; the ranks
+    hold the same bits; one all-reduce per optimizer step."""
+    ranks = [r["steps"] for r in world[0]]
+    _match_jax(ranks, jax_steps)
+    assert all(r["tp_collectives"] == 0 for r in ranks)
+    assert ranks[0]["d_weight_shape"] == (8, 4, 3, 3)
     print("rank CPU seconds by part:", [r["cpu_s"] for r in world[0]])
+
+
+def test_tp_steps_match_jax_single_device(world, jax_steps):
+    """The same steps on a mesh of model axis 2 over the two ranks (data
+    axis 1), the state sharded by `shard_params`: gathered, every tensor
+    within the float64 bar of the JAX package's single-device steps, the
+    losses too; the ranks' gathered states and losses bit-equal; the
+    layers exchanged channels over the model group, and each rank held
+    half of a sharded weight's rows."""
+    ranks = [r["tp_steps"] for r in world[0]]
+    _match_jax(ranks, jax_steps)
+    assert all(r["tp_collectives"] > 0 for r in ranks)
+    assert all(r["d_weight_shape"] == (4, 4, 3, 3) for r in ranks)
+
+
+@pytest.fixture(scope="module")
+def world4(step_inputs):
+    """Four ranks on a data 2 x model 2 mesh take `_rank_steps`."""
+    _, sd, _, inputs = step_inputs
+    t0 = time.perf_counter()
+    out = launch.run(_rank_steps, 4, "gloo", args=(sd, inputs, TP),
+                     devices=["cpu"] * 4, threads=1, timeout=300)
+    return out, time.perf_counter() - t0
+
+
+def test_dp_tp_steps_match_jax_single_device(world4, jax_steps):
+    """dp2 x tp2 over four ranks: each data coordinate's two rows, each
+    model coordinate's half of every sharded layer; the gathered state and
+    the losses equal the JAX package's single-device steps within the
+    float64 bar on every rank, bit-equal across the four."""
+    ranks, seconds = world4
+    _match_jax(ranks, jax_steps)
+    assert all(r["tp_collectives"] > 0 for r in ranks)
+    assert all(r["d_weight_shape"] == (4, 4, 3, 3) for r in ranks)
+    print(f"four-rank world: {seconds:.1f} s")
+
+
+@pytest.mark.parametrize("mp", [2, 4])
+def test_shard_params_places_as_the_jax_package(mp, step_inputs):
+    """`shard_params` on a state converted from the JAX package's keeps on
+    each model rank exactly the elements that the JAX package's
+    `_param_spec` places there: leaf by leaf, the last (output) axis of a
+    params or Adam leaf split over the model axis where it divides and
+    exceeds 1, every other leaf (spectral u and v, narrow layers) whole.
+    Among them: D_Qua's fc3 (2 outputs) is sharded at tp2 and whole at
+    tp4, D's (3) whole; the generator's input conv keeps its 128 input
+    channels.  No world: the placement makes no collective."""
+    from nelegan_tpu.parallel.mesh import _param_spec
+    from nelegan_tpu_torch.models.convert import train_state_from_jax
+
+    _, _, jcfg, _ = step_inputs
+    probe_state, probe, _, spans = _index_probe(jcfg)
+    port = train_state_from_jax(probe_state, STEP_CFG, "cpu")
+    n = sum(span[2] for span in spans if span is not None)
+    for j in range(mp):
+        mesh = Mesh(rank=j, world=mp, device=torch.device("cpu"),
+                    backend="gloo", model_parallel=mp)
+        sharded = shard_params(mesh, copy.deepcopy(port))
+        held = np.zeros(n, bool)
+        for k, v in _tensors(sharded).items():
+            if isinstance(v, np.ndarray) and not k.endswith(".step"):
+                held[v.astype(np.int64).ravel()] = True
+        for leaf, span in zip(probe, spans):
+            if span is None:
+                continue
+            field, first, size = span
+            idx = np.arange(first, first + size).reshape(leaf.shape)
+            want = np.zeros(leaf.shape, bool)
+            spec = (_param_spec(None, leaf, mp) if field in SHARDED_FIELDS
+                    else ())
+            if len(spec) and spec[-1] == "model":
+                c = leaf.shape[-1] // mp
+                want[..., j * c:(j + 1) * c] = True
+            else:
+                want[...] = True
+            np.testing.assert_array_equal(held[idx], want,
+                                          err_msg=f"{field} {leaf.shape}")
+        assert (sharded.dq.fc3.tp is not None) == (mp == 2)
+        assert sharded.d.fc3.tp is None
+        conv0 = sharded.gen.convolutions[0][0].conv.weight
+        assert conv0.shape == (STEP_CFG.model.gen_hidden // mp, 128, 5)
 
 
 def test_score_corpus_over_the_mesh(world, score_triple):
