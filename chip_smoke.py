@@ -6,7 +6,9 @@
 Needs one CUDA GPU (sm_90a: H100) and `nvcc`; exits non-zero without them,
 and in a directory that holds this file and nothing else of the repository.
 `python3 chip_smoke.py --fault-hunt N` runs only the hunt for the open
-fault of ROADMAP section 3 (see `fault_hunt`).
+fault of ROADMAP section 3 (see `fault_hunt`); `python3 chip_smoke.py
+--sanitize-launches` only launches the trainer path's kernels once each at
+its shapes, for `compute-sanitizer` to watch (see `sanitize_launches`).
 Phases, in order; any failure raises:
 
   1. the card, as `nvidia-smi --query-gpu=name,power.limit` prints it;
@@ -58,7 +60,12 @@ Phases, in order; any failure raises:
      card against the host's float64; float64 linrec and linrec_bwd (one
      pole a row and a pole per step, with y0) at [8, 143] and [2, 200001]
      against linrec_plain and linrec_backward_plain in float64 on the card
-     (LINREC_F64_BAR), timed by graph replay beside float32;
+     (LINREC_F64_BAR), timed by graph replay beside float32; then IMCRA,
+     linrec and linrec_bwd at the trainer path's shapes on outputs fenced
+     by GUARD_ELEMENTS sentinel elements on each side (`guard_checks`, in
+     place of compute-sanitizer, which does not run on the card's machine):
+     no guard byte changed, every output element written, the inputs
+     unchanged, the outputs equal to the wrappers' bit for bit;
   3b. gradient phase: a loss through the scan form of HASPI's middle ear
      on [8, 55296] (eight 36864-sample utterances at 24 kHz; synthetic, as
      no path of either package differentiates it: HASPI folds it into its
@@ -201,7 +208,16 @@ Phases, in order; any failure raises:
      the other (one epoch of the small corpus; log.txt and the checkpoint
      bit for bit), then two plain CLI runs side by side under torch's
      deterministic-algorithms check (reported: the open fault of ROADMAP
-     section 3); then two gloo ranks on the card (`parallel.launch`, CUDA
+     section 3); the recovery of a torchrun world: the CLI with
+     `--data-parallel --max-retries 1` under `--max-restarts 1`, a world
+     of one over NCCL, RECOVERY_EPOCHS epochs of the small corpus, its
+     first attempt failing at the start of epoch FAULT_EPOCH once
+     `latest` names the epoch before, against the world of one above
+     resumed by hand (`--resume`) to RECOVERY_EPOCHS: log.txt and the
+     checkpoint's state, key, replay and history bit for bit, every
+     attempt launching IMCRA and linrec (each attempt's launches and
+     seconds, and the agent's restart time, reported); then two gloo
+     ranks on the card (`parallel.launch`, CUDA
      tensors staged through the host) train the trainer phase's
      full-width run for two epochs, their D on the single run's scores,
      against that phase's straight run of the same epochs: the ranks'
@@ -225,10 +241,17 @@ Phases, in order; any failure raises:
      bit-equal on both ranks; G- and D-step times for single, dp
      (4 rows a rank) and tp, with each step's collectives by tag and
      their host-clock ms;
- 13. one JSON line per phase, one of kernel records (each with its launches
+ 13. report phase (`cli/train_report.py`): the report for REPORT_EPOCHS
+     epochs of one seed of `b8_f32` on the small corpus, launch counts
+     zeroed just before and read just after (IMCRA and linrec must run);
+     its multiseed.json and MULTISEED.md written, its untrained baseline
+     within SCORE_BARS of a fresh Trainer's `validate(epoch=0)`, and a
+     second call skipping the recorded seed without a launch;
+ 14. one JSON line per phase, one of kernel records (each with its launches
      on the serving, training, streaming, infer, scoring, gradient,
-     trainer, mixed-precision and direct paths, per rank on the parallel
-     one and its tensor-parallel part, and in the kernel phase;
+     trainer, mixed-precision, direct and report paths, per rank on the
+     parallel one and its tensor-parallel part, per attempt of the
+     recovered world, and in the kernel phase;
      `launches` is its own path's: serving for IMCRA and the cascade,
      scoring for linrec, the direct phase for linrec_bwd), the card line
      again, and last `{"ok": true, "device": ...}`.
@@ -236,14 +259,17 @@ Phases, in order; any failure raises:
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import functools
 import glob
+import io
 import itertools
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -257,7 +283,7 @@ import numpy as np
 import torch
 
 from nelegan_tpu_torch import kernels, metrics, parallel, pipeline, streaming
-from nelegan_tpu_torch.cli import infer, stream
+from nelegan_tpu_torch.cli import infer, stream, train_report
 from nelegan_tpu_torch.cli.serve import EnhanceServer, enhance_remote
 from nelegan_tpu_torch.config import Config, ImcraConfig, config_to_dict
 from nelegan_tpu_torch.data.pipeline import (BucketedLoader, CorpusIndex,
@@ -399,6 +425,11 @@ PAPER_SAMPLED, PAPER_VALID, PAPER_EPOCHS = 300, 480, 2
 # the mesh's collectives timed
 DP_WORLD, DP_EPOCHS = 2, 2
 TP_MODEL, TP_TIMED, TP_TRACED = 2, 10, 2
+# the recovered torchrun world runs RECOVERY_EPOCHS epochs of the small
+# corpus, its first attempt failing at the start of FAULT_EPOCH; the
+# report phase trains REPORT_EPOCHS epochs of one seed
+RECOVERY_EPOCHS, FAULT_EPOCH = 3, 2
+REPORT_EPOCHS, REPORT_SEED = 2, 101
 # Mixed-precision phase: the bfloat16 mask against float32 on valid frames
 # within the reference package's bars (tests/test_mixed_precision.py:68-69:
 # mean and max relative difference), both discriminators' scores within
@@ -1353,6 +1384,110 @@ def linrec_phase(dev) -> list:
         "path_bound_ms": times["short_rows"]["backward_bound_ms"],
         "vs_plain_autograd": vs_autograd, "filter_gradients": gradients}
     return [forward_rec, backward_rec]
+
+
+GUARD_ELEMENTS = 16384      # sentinel elements on each side of an output
+SENTINEL = 0xA5             # every byte of a guard and of an unwritten output
+
+
+def guarded(shape, dtype, dev) -> tuple:
+    """(output, buffer): a contiguous output of `shape` inside a flat buffer
+    with GUARD_ELEMENTS elements before and after it, every byte SENTINEL."""
+    n = int(np.prod(shape))
+    buf = torch.empty(n + 2 * GUARD_ELEMENTS, dtype=dtype, device=dev)
+    buf.view(torch.uint8).fill_(SENTINEL)
+    return buf[GUARD_ELEMENTS:GUARD_ELEMENTS + n].view(shape), buf
+
+
+def fence_errors(out: torch.Tensor, buf: torch.Tensor) -> dict:
+    """Guard bytes a launch changed around `out`, and elements of `out`
+    (4-byte) it left unwritten."""
+    g = GUARD_ELEMENTS * buf.element_size()
+    raw = buf.view(torch.uint8)
+    word = int.from_bytes(bytes([SENTINEL] * 4), "little", signed=True)
+    return {"guard_bytes_changed": int((raw[:g] != SENTINEL).sum()
+                                       + (raw[-g:] != SENTINEL).sum()),
+            "unwritten": int((out.reshape(-1).view(torch.int32)
+                              == word).sum())}
+
+
+def guard_checks(dev) -> dict:
+    """Out-of-bounds writes, without a sanitizer: IMCRA (fresh with its
+    state kept, then resumed from that state, at the trainer's [8, 145,
+    257]; fresh without state at [4, 97, 257]), linrec and linrec_bwd (one
+    pole a row, y0, PESQ's [8, PESQ_FRAMES]) launched on outputs fenced by
+    GUARD_ELEMENTS sentinel elements on each side: no guard byte changed,
+    every output element written, the inputs unchanged bit for bit, and
+    the outputs equal to the wrappers' bit for bit."""
+    cfg = ImcraConfig()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    coef = imcra._kernel_coefficients(cfg).ctypes.data
+    rows = len(imcra._FIELDS) + 2 * imcra.KERNEL_U
+    res = {}
+
+    out = object()              # marks the fenced outputs' pointers
+
+    def check(name, kernel, inputs, outs, args, wrapper):
+        """Launch `kernel` with `args` (`out` stands for each fenced output
+        in turn) and read the fences; `wrapper` gives the same outputs."""
+        before = [x.clone() for x in inputs]
+        ptrs = iter(o.data_ptr() for o, _ in outs)
+        kernels.launch(kernel, *(next(ptrs) if a is out else a
+                                 for a in args), stream)
+        torch.cuda.synchronize()
+        rec = {"inputs_changed": sum(
+            int(not torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+            for a, b in zip(before, inputs)),
+            "guard_bytes_changed": 0, "unwritten": 0}
+        for o, buf in outs:
+            for key, v in fence_errors(o, buf).items():
+                rec[key] += v
+        rec["equal_to_wrapper"] = all(
+            torch.equal(o.view(torch.uint8), w.contiguous().view(torch.uint8))
+            for (o, _), w in zip(outs, wrapper()))
+        res[name] = rec
+        return [o for o, _ in outs]
+
+    def imcra_fenced(name, y2, st_in=None, ju_in=None, l0=0, keep=True):
+        b, t, k = y2.shape
+        outs = [guarded((b, t, k), torch.float32, dev)]
+        if keep:
+            outs += [guarded((b, rows, k), torch.float32, dev),
+                     guarded((b, 2), torch.int32, dev)]
+        ins = [y2] if st_in is None else [y2, st_in, ju_in]
+        kept = out if keep else None
+        return check(name, "imcra_scan", ins, outs, (
+            y2.data_ptr(), out, st_in if st_in is None else st_in.data_ptr(),
+            kept, ju_in if ju_in is None else ju_in.data_ptr(), kept, b, t,
+            k, l0, coef, cfg.is_frames, cfg.v_frames), lambda: [
+            x for x in imcra.imcra_scan_packed(y2, st_in, ju_in, l0, cfg,
+                                               keep) if x is not None])
+
+    y2 = noise_power(dev, BUCKET, 6)
+    _, st, ju = imcra_fenced("imcra_fresh_state", y2[:, :60].contiguous())
+    imcra_fenced("imcra_resumed", y2[:, 60:].contiguous(), st.clone(),
+                 ju.clone(), l0=60)
+    imcra_fenced("imcra_stateless_b4",
+                 noise_power(dev, 24576, 7)[:4].contiguous(), keep=False)
+
+    gen = torch.Generator().manual_seed(8)
+    a = torch.full((8,), 0.2, device=dev)
+    b = torch.rand(8, PESQ_FRAMES, generator=gen).to(dev)
+    g = torch.randn(8, PESQ_FRAMES, generator=gen).to(dev)
+    y0 = torch.ones(8, device=dev)
+    (y,) = check("linrec", "linrec", [a, b, y0],
+                 [guarded((8, PESQ_FRAMES), torch.float32, dev)],
+                 (a.data_ptr(), b.data_ptr(), y0.data_ptr(), out, 8,
+                  PESQ_FRAMES, 0, 0), lambda: [iir.linrec(a, b, y0)])
+    y = y.clone()
+    check("linrec_bwd", "linrec_bwd", [a, g, y0, y],
+          [guarded((8, PESQ_FRAMES), torch.float32, dev),
+           guarded((8,), torch.float32, dev),
+           guarded((8,), torch.float32, dev)],
+          (a.data_ptr(), g.data_ptr(), y0.data_ptr(), y.data_ptr(), out,
+           out, out, 8, PESQ_FRAMES, 0, 0),
+          lambda: list(iir.linrec_backward(a, g, y, y0)))
+    return res
 
 
 def pesq_rows(seed: int, rows: int = 8):
@@ -3995,13 +4130,16 @@ def cli_world_of_one(tmp: str, corpus: str, device: str = "cuda") -> dict:
     runs once differed in their state.  Two runs of the plain CLI side by
     side under torch's deterministic-algorithms check (warn only): whether
     their checkpoints agree bit for bit, and the operations torch names as
-    having no deterministic implementation (reported, not gated)."""
-    def args(run):
+    having no deterministic implementation (reported, not gated).  Last,
+    the recovery of a world (`cli_world_recovery`), against the world of
+    one's run resumed by hand."""
+    def args(run, epochs=1):
         return ["--train-clean", f"{corpus}/Train/Clean",
                 "--train-noise", f"{corpus}/Train/Noise",
                 "--test-clean", f"{corpus}/Test/Clean",
                 "--test-noise", f"{corpus}/Test/Noise",
-                "--epochs", "1", "--batch-size", "4", "--num-sampling", "8",
+                "--epochs", str(epochs), "--batch-size", "4",
+                "--num-sampling", "8",
                 "--num-valid", str(TRAINER_SMALL_TEST),
                 "--metrics", ",".join(TRAINER_SMALL_METRICS),
                 "--device", device, "--output", f"{run}/output",
@@ -4037,7 +4175,118 @@ def cli_world_of_one(tmp: str, corpus: str, device: str = "cuda") -> dict:
                  for a, b in zip(xa["history"][m], xb["history"][m])),
                 default=0.0),
             "seconds": seconds,
-            "side_by_side": cli_side_by_side(tmp, args)}
+            "side_by_side": cli_side_by_side(tmp, args),
+            "recovery": cli_world_recovery(tmp, args, dp)}
+
+
+# the CLI as torchrun's entry script for the recovery of a world: on the
+# first attempt the process raises at the start of epoch NELE_FAULT_EPOCH,
+# once `latest` names the epoch before it (the checkpoint is published in
+# the background while the next epoch runs); at exit every attempt prints
+# its kernel launches (counted from 0 just before the CLI starts) and its
+# start and end on the host clock
+RECOVERY_CLI = """
+import atexit, json, os, runpy, time
+start = time.time()
+from nelegan_tpu_torch import kernels
+from nelegan_tpu_torch.train import loop, resilience
+attempt = resilience.restart_count()
+fault = int(os.environ["NELE_FAULT_EPOCH"])
+run_epoch = loop.Trainer.run_epoch
+def faulty(self, epoch):
+    if attempt == 0 and epoch == fault:
+        latest = os.path.join(self.paths.checkpoints, "latest")
+        want = "chkpt_%d.ptstate" % (epoch - 1)
+        deadline = time.monotonic() + 300
+        while not (os.path.lexists(latest) and os.readlink(latest) == want):
+            if time.monotonic() > deadline:
+                raise TimeoutError("%s never named %s" % (latest, want))
+            time.sleep(0.02)
+        raise RuntimeError("injected fault at epoch %d" % epoch)
+    return run_epoch(self, epoch)
+loop.Trainer.run_epoch = faulty
+def record():
+    print("attempt " + json.dumps({"attempt": attempt, "start": start,
+                                   "end": time.time(),
+                                   "launches": dict(kernels.launches)}),
+          flush=True)
+atexit.register(record)
+kernels.reset_launches()
+runpy.run_module("nelegan_tpu_torch.cli.train", run_name="__main__")
+"""
+ATTEMPT_LINE = re.compile(r"attempt (\{.*\})$", re.MULTILINE)
+RESUMED_LINE = re.compile(
+    r"\[recovery\] attempt (\d+): resumed at epoch (\d+)")
+
+
+def torchrun_cli(entry: list, args: list, restarts: int = 0,
+                 env: dict = None) -> tuple:
+    """The CLI in a torchrun world of one (`--standalone`, a free port)
+    -> (its output, seconds); raises when it fails."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "--max-restarts", str(restarts), *entry,
+         "--data-parallel", *args], cwd=REPO, capture_output=True,
+        text=True, timeout=600, env=env)
+    seconds = time.perf_counter() - t0
+    text = out.stdout + out.stderr
+    if out.returncode != 0:
+        raise AssertionError(f"torchrun {entry} exited {out.returncode}:"
+                             f"\n{text[-4000:]}")
+    return text, seconds
+
+
+def cli_world_recovery(tmp: str, args, by_hand: str) -> dict:
+    """`cli/train --data-parallel --max-retries 1` under `torch.distributed
+    .run --max-restarts 1`, a world of one over NCCL, RECOVERY_EPOCHS
+    epochs, through RECOVERY_CLI (a fault at the start of FAULT_EPOCH of
+    the first attempt), against the world `by_hand` (run to epoch
+    FAULT_EPOCH - 1) resumed by hand with `--resume` to RECOVERY_EPOCHS:
+    log.txt and the checkpoint's state, key, replay and history bit for
+    bit; each attempt's launches and seconds, the agent's restart time
+    (from the first attempt's exit to the second's first line)."""
+    _, by_hand_s = torchrun_cli(["-m", "nelegan_tpu_torch.cli.train"],
+                                args(by_hand, RECOVERY_EPOCHS) + ["--resume"])
+    rec = f"{tmp}/cli_recovered"
+    os.makedirs(rec)
+    script = Path(rec, "recovery_cli.py")
+    script.write_text(RECOVERY_CLI)
+    env = dict(os.environ, NELE_FAULT_EPOCH=str(FAULT_EPOCH),
+               PYTHONPATH=os.pathsep.join(filter(None, (
+                   str(REPO), os.environ.get("PYTHONPATH")))))
+    text, world_s = torchrun_cli(
+        [str(script)], args(rec, RECOVERY_EPOCHS) + ["--max-retries", "1"],
+        restarts=1, env=env)
+    attempts = sorted((json.loads(m) for m in ATTEMPT_LINE.findall(text)),
+                      key=lambda a: a["attempt"])
+    resumed = RESUMED_LINE.findall(text)
+    # the fault waits for `latest` to name FAULT_EPOCH - 1, so the world
+    # resumes at FAULT_EPOCH; the log says where it did
+    if ("injected fault" not in text or [a["attempt"] for a in attempts]
+            != [0, 1] or resumed != [("2", str(FAULT_EPOCH))]):
+        raise AssertionError(f"world recovery: attempts {attempts}, "
+                             f"resumed {resumed}:\n{text[-4000:]}")
+    for a in attempts:
+        if not (a["launches"]["imcra_scan"] > 0
+                and a["launches"]["linrec"] > 0):
+            raise AssertionError(f"world recovery: attempt {a['attempt']} "
+                                 f"launched {a['launches']}")
+    (sa, ka, ea, ra, xa), (sb, kb, eb, rb, xb) = (cli_checkpoint(rec),
+                                                  cli_checkpoint(by_hand))
+    with open(f"{rec}/log.txt") as f, open(f"{by_hand}/log.txt") as g:
+        log_equal = f.read() == g.read()
+    return {"log": log_equal, "state": states_equal(sa, sb),
+            "key": torch.equal(ka.get_state(), kb.get_state()),
+            "epoch": ea == eb == RECOVERY_EPOCHS,
+            "replay": ra.replace(rec, "") == rb.replace(by_hand, ""),
+            "history": xa["history"] == xb["history"],
+            "resumed_at": int(resumed[0][1]),
+            "attempts": [{"attempt": a["attempt"],
+                          "seconds": a["end"] - a["start"],
+                          "launches": a["launches"]} for a in attempts],
+            "restart_s": attempts[1]["start"] - attempts[0]["end"],
+            "world_s": world_s, "by_hand_s": by_hand_s}
 
 
 def cli_side_by_side(tmp: str, args) -> dict:
@@ -4358,9 +4607,10 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
     cli = cli_world_of_one(tmp, f"{tmp}/trainer_small", dev.type)
     print(f"cli/train --data-parallel, a torchrun world of one (NCCL), "
           f"against the CLI without it: {cli}")
-    if not all(cli[k] for k in ("log", "state", "key", "epoch", "replay",
-                                "history")):
-        raise AssertionError(f"cli world of one: {cli}")
+    if not all(cli[k] and cli["recovery"][k]
+               for k in ("log", "state", "key", "epoch", "replay",
+                         "history")):
+        raise AssertionError(f"cli world of one or its recovery: {cli}")
 
     corpus = f"{tmp}/trainer_corpus"
     t0 = time.perf_counter()
@@ -4496,6 +4746,94 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
     return res
 
 
+def report_phase(dev, tmp: str) -> dict:
+    """`cli/train_report` for REPORT_EPOCHS epochs of one seed of `b8_f32`
+    on the trainer phase's small corpus (its 8 training utterances all
+    sampled, its 4 validated, the pre-enhanced copy scored), float32, TF32
+    off, deterministic cuDNN; every check raises.  Launch counts zeroed
+    just before the report and read just after: IMCRA and linrec must run.
+    multiseed.json and MULTISEED.md are written; the untrained baseline
+    is within SCORE_BARS of a fresh Trainer's `validate(epoch=0)` on the
+    same config; a second call skips the recorded seed and launches
+    nothing."""
+    t_phase = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    corpus, work = f"{tmp}/trainer_small", f"{tmp}/report"
+    argv = ["--seeds", str(REPORT_SEED), "--epochs", str(REPORT_EPOCHS),
+            "--variants", "b8_f32", "--corpus", corpus,
+            "--n-train", str(TRAINER_SMALL_TRAIN),
+            "--n-valid", str(TRAINER_SMALL_TEST), "--work", work,
+            "--out", f"{work}/out", "--device", dev.type]
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results = train_report.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        if not (launches["imcra_scan"] > 0 and launches["linrec"] > 0):
+            raise AssertionError(f"report: launches {launches}")
+        written = {f: os.path.getsize(f"{work}/out/{f}")
+                   for f in ("multiseed.json", "MULTISEED.md")}
+        (run,) = results["variants"]["b8_f32"]
+        cfg = Config(train=dataclasses.replace(
+            Config().train, gan_epochs=REPORT_EPOCHS,
+            num_sampling=TRAINER_SMALL_TRAIN, num_valid=TRAINER_SMALL_TEST,
+            batch_size=8, seed=REPORT_SEED))
+        fresh = Trainer(trainer_paths(corpus, f"{work}/fresh"), cfg,
+                        metric_set=SCORE_METRICS, device=dev)
+        want = fresh.validate(epoch=0)
+        baseline = {m: abs(run["baseline"][m] - want[m]) / max(abs(want[m]),
+                                                                1.0)
+                    for m in SCORE_METRICS}
+        if not all(baseline[m] <= SCORE_BARS[m] for m in SCORE_METRICS):
+            raise AssertionError(f"report: baseline against a fresh "
+                                 f"trainer's validate(0): {baseline}")
+        kernels.reset_launches()
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            again = train_report.main(argv)
+        skipped = (f"[skip] b8_f32 seed {REPORT_SEED} (already recorded)"
+                   in said.getvalue())
+        if not (skipped and again == json.loads(json.dumps(results))
+                and not any(kernels.launches.values())):
+            raise AssertionError(f"report: a second call trained again: "
+                                 f"{said.getvalue()[-2000:]}")
+    finally:
+        cudnn.deterministic = deterministic
+    res = {"seconds": seconds, "launches": launches, "written_bytes": written,
+           "baseline_rel_to_fresh": baseline, "skipped_recorded_seed": True,
+           "s_per_epoch": run["s_per_epoch"], "timing": run["timing"],
+           "best": run["best"], "baseline": run["baseline"],
+           "device": run["device"],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"report phase: {res['phase_s']:.1f} s")
+    return res
+
+
+def sanitize_launches(dev) -> dict:
+    """One launch of each kernel of the trainer's path at its shapes, the
+    inputs from seeds: IMCRA on eight noise spectra of the 36864-sample
+    bucket ([8, 145, 257], fresh and with its state kept) and on four of
+    the 24576 bucket; linrec and linrec_bwd at PESQ's gain memory, [8,
+    PESQ_FRAMES], one pole a row and y0.  -> the launches."""
+    kernels.build()
+    kernels.reset_launches()
+    y2 = noise_power(dev, BUCKET, 3)
+    imcra.imcra_psd(y2)
+    imcra.imcra_scan(y2, keep_state=True)
+    imcra.imcra_psd(noise_power(dev, 24576, 4)[:4].contiguous())
+    gen = torch.Generator().manual_seed(5)
+    b = torch.rand(8, PESQ_FRAMES, generator=gen).to(dev).requires_grad_()
+    y = iir.linrec(torch.full((8,), 0.2, device=dev), b,
+                   torch.ones(8, device=dev))
+    y.backward(torch.randn(8, PESQ_FRAMES, generator=gen).to(dev))
+    torch.cuda.synchronize()
+    return dict(kernels.launches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -4508,12 +4846,23 @@ def main() -> None:
         print(json.dumps({"fault_hunt": fault_hunt(int(sys.argv[2]))}))
         print(card)
         return
+    if sys.argv[1:2] == ["--sanitize-launches"]:
+        print(json.dumps({"sanitize_launches": sanitize_launches(dev)}))
+        print(card)
+        return
 
     secs = kernels.build()
     print(f"built {sorted(kernels.KERNELS)} in {secs:.2f} s")
 
     kernels.reset_launches()
     records = [imcra_phase(dev), cascade_phase(dev), *linrec_phase(dev)]
+    fences = guard_checks(dev)
+    print(f"kernels on fenced outputs: {fences}")
+    if not all(r["equal_to_wrapper"] and not (r["inputs_changed"]
+               or r["guard_bytes_changed"] or r["unwritten"])
+               for r in fences.values()):
+        raise AssertionError(f"a kernel wrote outside its outputs or left "
+                             f"them unwritten: {fences}")
     checked = dict(kernels.launches)
     gradient = gradient_phase(dev)
     serving = serving_phase(dev)
@@ -4529,6 +4878,7 @@ def main() -> None:
                                       trained["epochs"])
         directed = direct_phase(dev)
         paralleled = parallel_phase(dev, tmp, single)
+        reported = report_phase(dev, tmp)
     for rec in records:
         rec["launches"] = serving["launches"][rec["name"]]
         rec["training_launches"] = training["launches"][rec["name"]]
@@ -4543,6 +4893,10 @@ def main() -> None:
             r[rec["name"]] for r in paralleled["launches_per_rank"]]
         rec["tp_launches_per_rank"] = [
             r[rec["name"]] for r in paralleled["tp"]["launches_per_rank"]]
+        rec["recovery_launches"] = [
+            a["launches"][rec["name"]]
+            for a in paralleled["cli_world_of_one"]["recovery"]["attempts"]]
+        rec["report_launches"] = reported["launches"][rec["name"]]
     # linrec's path is scoring (PESQ's gain memory through cli/infer
     # --metrics), linrec_bwd's the direct step (PESQ's gradient)
     records[2]["launches"] = scored["launches"]["linrec"]
@@ -4565,6 +4919,7 @@ def main() -> None:
     print(json.dumps({"mixed_precision": mixed}))
     print(json.dumps({"direct": directed}))
     print(json.dumps({"parallel": paralleled}))
+    print(json.dumps({"report": reported}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

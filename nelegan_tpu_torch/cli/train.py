@@ -16,7 +16,7 @@ Counterpart of `nelegan_tpu/cli/train.py`, with `--device` (default
 Data parallelism: one process a GPU, started by torchrun, each rank
 training on its rows of every batch (`parallel/mesh.py`):
 
-    torchrun --nproc-per-node 4 -m nelegan_tpu_torch.cli.train \
+    torchrun --nproc-per-node 4 -m nelegan_tpu_torch.cli.train \\
         --data-parallel ...        # or python -m torch.distributed.run
 
 Each rank joins the world from torchrun's environment, on CUDA device
@@ -25,6 +25,15 @@ fails the rank.  Only rank 0 writes the run's files.  `--data-parallel`
 without torchrun trains on one device, and raises with more than one GPU
 visible.  Every run sets deterministic cuDNN (and TF32 off), so that a
 resumed run continues bit for bit.
+
+Recovery: `--max-retries N` rebuilds and resumes the trainer in-process
+(`train/resilience.run_with_recovery`).  In a torchrun world the agent
+restarts the whole world instead, and every rank of a restarted attempt
+resumes the latest checkpoint (`resume_after_restart`); torchrun must
+allow at least N restarts, or the CLI refuses:
+
+    torchrun --standalone --nproc-per-node 2 --max-restarts 1 \\
+        -m nelegan_tpu_torch.cli.train --data-parallel --max-retries 1 ...
 """
 from __future__ import annotations
 
@@ -67,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-retries", type=int, default=0,
                    help="elastic recovery: on failures, rebuild the "
                         "trainer, resume from the latest checkpoint and "
-                        "continue (up to N extra attempts)")
+                        "continue (up to N extra attempts); in a torchrun "
+                        "world torchrun's --max-restarts (at least N) "
+                        "restarts the world and every rank resumes")
     p.add_argument("--init-from-torch", default=None,
                    help="reference chkpt_GD.pt to initialise from")
     p.add_argument("--device", default="cuda",
@@ -81,20 +92,27 @@ def join_world(device: str):
     """Join the torchrun world this process was started in (its env://
     variables) -> this rank's device: CUDA device LOCAL_RANK over NCCL, or
     with a CPU `device` the CPU over gloo.  No fallback: a backend that
-    cannot start raises."""
+    cannot start raises.
+
+    torchrun's agent keeps one store across the restarts of a world, so a
+    restarted attempt's ranks would find the failed attempt's addresses
+    there and connect to dead peers: each attempt keys its group under a
+    prefix of its own."""
     import torch
     import torch.distributed as dist
 
     from nelegan_tpu_torch.device import resolve_device
     from nelegan_tpu_torch.parallel.mesh import local_cuda_device
+    from nelegan_tpu_torch.train.resilience import restart_count
 
+    store, rank, world = next(dist.rendezvous("env://"))
+    store = dist.PrefixStore(f"attempt_{restart_count()}", store)
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = resolve_device(local_cuda_device())
         torch.cuda.set_device(dev)
-        dist.init_process_group("nccl")
-    else:
-        dist.init_process_group("gloo")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=store, rank=rank, world_size=world)
     return dev
 
 
@@ -107,14 +125,12 @@ def main(argv=None):
 
     from nelegan_tpu_torch.config import Config, ModelConfig, TrainConfig
     from nelegan_tpu_torch.device import disable_tf32, resolve_device
+    from nelegan_tpu_torch.train import resilience
     from nelegan_tpu_torch.train.loop import Trainer, TrainPaths
 
     world = args.data_parallel and "WORLD_SIZE" in os.environ
     if world and args.max_retries > 0:
-        raise SystemExit(
-            "--max-retries rebuilds one process's trainer and cannot "
-            "rebuild a torchrun world; restart the world instead "
-            "(torchrun --max-restarts with --resume)")
+        resilience.check_restart_budget(args.max_retries)
     device = join_world(args.device) if world else resolve_device(args.device)
     # per process: spawned or torchrun ranks do not inherit them
     disable_tf32()
@@ -133,7 +149,7 @@ def main(argv=None):
 
     metrics = tuple(m.strip() for m in args.metrics.split(",") if m.strip())
 
-    def make_trainer():
+    def make_trainer(resume=args.resume):
         trainer = Trainer(paths, cfg, metric_set=metrics,
                           data_parallel=args.data_parallel, device=device)
         if args.init_from_torch:
@@ -142,18 +158,22 @@ def main(argv=None):
             trainer.state = load_reference_checkpoint(args.init_from_torch,
                                                       trainer.state)
             print(f"initialised from {args.init_from_torch}")
-        if args.resume:
+        if resume:
             trainer.resume(truncate_log=True)
             print(f"resumed at epoch {trainer.start_epoch}")
         return trainer
 
-    if args.max_retries > 0:
-        from nelegan_tpu_torch.train.resilience import run_with_recovery
-        return run_with_recovery(make_trainer, args.epochs,
-                                 max_retries=args.max_retries,
-                                 verbose_timing=args.verbose_timing)
+    if not world and args.max_retries > 0:
+        return resilience.run_with_recovery(
+            make_trainer, args.epochs, max_retries=args.max_retries,
+            verbose_timing=args.verbose_timing)
     try:
-        trainer = make_trainer()
+        # a restarted world resumes its latest checkpoint, not --resume's
+        restarted = (world and args.max_retries > 0
+                     and resilience.restart_count() > 0)
+        trainer = make_trainer(resume=args.resume and not restarted)
+        if restarted:
+            resilience.resume_after_restart(trainer)
         trainer.run(args.epochs, verbose_timing=args.verbose_timing)
     finally:
         if world:

@@ -77,6 +77,19 @@ def test_trainer_modules_are_covered():
             "nelegan_tpu_torch.utils.profiling"} <= set(_port_modules())
 
 
+def test_recovery_and_report_modules_are_covered():
+    """The world's recovery and the training report are among the modules
+    imported and scanned; the report reads the JAX campaign's results as
+    data, imports nothing of the JAX package, and builds its corpus with
+    the repository's tool run as a program."""
+    assert {"nelegan_tpu_torch.train.resilience",
+            "nelegan_tpu_torch.cli.train_report"} <= set(_port_modules())
+    from nelegan_tpu_torch.cli import train_report
+    from nelegan_tpu_torch.train import resilience
+    assert callable(resilience.resume_after_restart)
+    assert train_report.JAX_REPORT.suffix == ".json"
+
+
 def test_parallel_modules_are_covered(monkeypatch):
     """The data-parallel modules are among those imported and scanned; a
     mesh needs a process group, and its default device is CUDA."""
@@ -125,7 +138,7 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from nelegan_tpu_torch import metrics, pipeline, streaming
     from nelegan_tpu_torch.cli import (collect_norm, eval_reverb,
                                        export_torch, infer, serve, stream,
-                                       train)
+                                       train, train_report)
     from nelegan_tpu_torch.dsp.imcra import imcra_init
     from nelegan_tpu_torch.metrics.siib import siib
     from nelegan_tpu_torch.models.generator import Generator
@@ -164,6 +177,8 @@ def test_new_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: train.main(["--train-clean", str(tmp_path), "--train-noise",
                             str(tmp_path), "--test-clean", str(tmp_path),
                             "--test-noise", str(tmp_path)]),
+        lambda: train_report.main(["--work", str(tmp_path), "--out",
+                                   str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
