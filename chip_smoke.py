@@ -5,11 +5,17 @@
 
 Needs one CUDA GPU (sm_90a: H100) and `nvcc`; exits non-zero without them,
 and in a directory that holds this file and nothing else of the repository.
-`python3 chip_smoke.py --fault-hunt N` runs only the hunt for the open
-fault of ROADMAP section 3 (see `fault_hunt`); `python3 chip_smoke.py
+`python3 chip_smoke.py --fault-hunt N [SECONDS]` runs only the hunt for
+the open fault of ROADMAP section 3 (see `fault_hunt`); `python3 chip_smoke.py
 --sanitize-launches` only launches the trainer path's kernels once each at
 its shapes, for `compute-sanitizer` to watch (see `sanitize_launches`).
-Phases, in order; any failure raises:
+Phases, in order; any failure raises.  From the trainer phase on, every
+Trainer the script makes, in this process, in a spawned rank or in a CLI
+run, is under the generator guard (`install_generator_guard`): its
+generator must leave epoch 1 bit-equal to its draw, checked after
+`init_train_state`, after `Trainer.__init__`, after each phase of epoch 1
+and at its end; a violation names the point, the tensor and the changed
+elements, and fails every run but the side-by-side pair, which reports:
 
   1. the card, as `nvidia-smi --query-gpu=name,power.limit` prints it;
   2. build the kernels from nelegan_tpu_torch/csrc (one nvcc per source,
@@ -199,7 +205,23 @@ Phases, in order; any failure raises:
      its peak memory, one step's busy share; linrec and linrec_bwd once per
      step that weighs PESQ and never otherwise, IMCRA never in the steps;
      one ESTOI + PESQ step under the bfloat16 policy, finite;
- 12. parallel phase (`parallel/`, torch.distributed), float32, TF32 off,
+ 12. eval phase (`cli/eval_reverb`, `cli/collect_norm`,
+     `cli/export_torch`, `dsp/reverb.py`, P.56, MMSE-LSA; `eval_phase`):
+     the synthetic corpus of tools/make_synth_corpus.py (seed 1234,
+     EVAL_UTTS training and test utterances), synthetic RIRs of T60 0.3
+     and 0.9 s, the seeded full-width checkpoint; `fir_filter` against
+     lfilter (FIR_BAR, float64); eval_reverb (NO_rev and both RIRs, all
+     five metrics, batch EVAL_BATCH) through its main, IMCRA once a batch
+     and condition and linrec once a PESQ call, its first EVAL_CPU_UTTS
+     utterances against the same CLI on the CPU (EVAL_BARS on each
+     mean); collect_norm with --rir-dir, calibrated and raw (calibrated =
+     make_mappers_np of raw; the first values' means against the CPU
+     run); export_torch generator-only and full bit-equal to the CPU's
+     export and the checkpoint, the exported generator's PCM16 bit-equal
+     on a serving batch; P.56 at [16, 33536] float64 against the golden
+     (ASL_GOLDEN_BAR) and the CPU (ASL_F64_BAR); mmse_lsa_enhance against
+     the CPU's float64 (MMSE_BAR); rates, shares and launches;
+ 13. parallel phase (`parallel/`, torch.distributed), float32, TF32 off,
      deterministic cuDNN: NCCL probed with two ranks on the one card (it
      refuses: its words are printed); the mesh's collectives (replicate,
      all-reduce, all-gather) over NCCL in a world of this process alone,
@@ -241,15 +263,15 @@ Phases, in order; any failure raises:
      bit-equal on both ranks; G- and D-step times for single, dp
      (4 rows a rank) and tp, with each step's collectives by tag and
      their host-clock ms;
- 13. report phase (`cli/train_report.py`): the report for REPORT_EPOCHS
+ 14. report phase (`cli/train_report.py`): the report for REPORT_EPOCHS
      epochs of one seed of `b8_f32` on the small corpus, launch counts
      zeroed just before and read just after (IMCRA and linrec must run);
      its multiseed.json and MULTISEED.md written, its untrained baseline
      within SCORE_BARS of a fresh Trainer's `validate(epoch=0)`, and a
      second call skipping the recorded seed without a launch;
- 14. one JSON line per phase, one of kernel records (each with its launches
+ 15. one JSON line per phase, one of kernel records (each with its launches
      on the serving, training, streaming, infer, scoring, gradient,
-     trainer, mixed-precision, direct and report paths, per rank on the
+     trainer, mixed-precision, direct, eval and report paths, per rank on the
      parallel one and its tensor-parallel part, per attempt of the
      recovered world, and in the kernel phase;
      `launches` is its own path's: serving for IMCRA and the cascade,
@@ -258,12 +280,14 @@ Phases, in order; any failure raises:
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import copy
 import dataclasses
 import functools
 import glob
+import hashlib
 import io
 import itertools
 import json
@@ -283,21 +307,25 @@ import numpy as np
 import torch
 
 from nelegan_tpu_torch import kernels, metrics, parallel, pipeline, streaming
-from nelegan_tpu_torch.cli import infer, stream, train_report
+from nelegan_tpu_torch.cli import (collect_norm, eval_reverb, export_torch,
+                                   infer, stream, train_report)
 from nelegan_tpu_torch.cli.serve import EnhanceServer, enhance_remote
 from nelegan_tpu_torch.config import Config, ImcraConfig, config_to_dict
 from nelegan_tpu_torch.data.pipeline import (BucketedLoader, CorpusIndex,
                                              get_filepaths)
 from nelegan_tpu_torch.data.wavio import read_wav, write_wav_pcm16
 from nelegan_tpu_torch.device import disable_tf32
-from nelegan_tpu_torch.dsp import imcra, mmse
+from nelegan_tpu_torch.dsp import asl_p56, imcra, mmse
+from nelegan_tpu_torch.dsp.reverb import fir_filter
 from nelegan_tpu_torch.dsp.stft import stft
+from nelegan_tpu_torch.metrics.calibrate import make_mappers_np
 from nelegan_tpu_torch.metrics.clean_pool import CleanSidePool
 from nelegan_tpu_torch.metrics.haspi.ear_model import (_ME_A, _ME_B,
                                                        ear_model, middle_ear,
                                                        middle_ear_response)
 from nelegan_tpu_torch.metrics.siib import (_capacity, _klt, _stack_pair,
                                             siib_prepare)
+from nelegan_tpu_torch.models import convert
 from nelegan_tpu_torch.models.generator import Generator
 from nelegan_tpu_torch.ops import cascade, iir
 from nelegan_tpu_torch.parallel import launch
@@ -3148,6 +3176,212 @@ class SmokeTrainer(Trainer):
         return means
 
 
+# ------------------------------------------------- the generator invariant
+# In epoch 1 the generator takes no step (Trainer.run_epoch trains G from
+# epoch 2), so a run must end epoch 1 with the generator it drew.  The
+# guard digests every generator tensor's bytes on the host (a) when
+# gan.init_train_state returns inside Trainer.__init__ (before any
+# replicate), (b) after Trainer.__init__, (c) after each StepTimer phase of
+# epoch 1 and (d) at the end of epoch 1, and names the first point where a
+# tensor's bytes changed.  Hooked in from here, as HUNT_CLI's kept_init
+# is: the package has no switch for it.
+class GeneratorGuard:
+    """The points of one Trainer's generator: a digest of all its bytes at
+    each, and the first change against point (a), by tensor: how many
+    elements changed, their flat index ranges (a few contiguous runs point
+    to a write; every element to another draw) and their first old and
+    new values."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.first = None           # point (a): name -> host bytes
+        self.points = []            # (point, digest)
+        self.violation = None
+
+    def mark(self, point: str, gen: torch.nn.Module) -> None:
+        host = {k: v.detach().reshape(-1).to("cpu", copy=True)
+                for k, v in gen.state_dict().items()}
+        digest = hashlib.sha256()
+        for k in sorted(host):
+            digest.update(host[k].view(torch.uint8).numpy().tobytes())
+        self.points.append((point, digest.hexdigest()[:16]))
+        if self.first is None:
+            self.first = host
+            return
+        if self.violation is not None:
+            return
+        for k, new in host.items():
+            old = self.first[k]
+            if new.dtype == old.dtype and torch.equal(
+                    new.view(torch.uint8), old.view(torch.uint8)):
+                continue
+            self.violation = {"point": point, "tensor": k,
+                              **changed_elements(old, new)}
+            return
+
+    def rebase(self, point: str, gen: torch.nn.Module) -> None:
+        """Start again from `gen` at `point`: a change the caller made on
+        purpose (a control) is not a violation."""
+        self.first = None
+        self.mark(point, gen)
+
+    @property
+    def ok(self) -> bool:
+        return self.violation is None and len(self.points) > 1
+
+    def record(self) -> dict:
+        return {"label": self.label, "ok": self.ok,
+                "points": [p for p, _ in self.points],
+                "digests": sorted({d for _, d in self.points}),
+                "violation": self.violation}
+
+
+def changed_elements(old: torch.Tensor, new: torch.Tensor) -> dict:
+    """Of two flat host tensors, the elements whose bytes differ: count,
+    contiguous index ranges (first 8, and how many), first old and new
+    values."""
+    if old.shape != new.shape or old.dtype != new.dtype:
+        return {"elements": old.numel(), "changed": old.numel(),
+                "ranges": [], "n_ranges": 0, "old": [], "new": [],
+                "shape_or_dtype": [str(old.dtype), str(new.dtype),
+                                   old.numel(), new.numel()]}
+    size = old.element_size()
+    a = old.view(torch.uint8).reshape(-1, size).numpy()
+    b = new.view(torch.uint8).reshape(-1, size).numpy()
+    idx = np.flatnonzero((a != b).any(axis=1))
+    cuts = np.flatnonzero(np.diff(idx) > 1)
+    starts = np.concatenate([idx[:1], idx[cuts + 1]])
+    ends = np.concatenate([idx[cuts], idx[-1:]])
+    return {"elements": old.numel(), "changed": int(idx.size),
+            "ranges": [[int(s), int(e)] for s, e in zip(starts[:8],
+                                                         ends[:8])],
+            "n_ranges": int(starts.size),
+            "old": old[idx[:4]].double().tolist(),
+            "new": new[idx[:4]].double().tolist()}
+
+
+# every guard of this process's Trainers, in order of creation
+GUARDS: list = []
+
+
+def install_generator_guard(record_file: str = None):
+    """Hooks the guard into every Trainer made from now on (its
+    `gen_guard`, appended to GUARDS) -> undo.  With `record_file`, the
+    guards' records are written there as JSON at the process's exit (a
+    CLI run in a subprocess)."""
+    guards, building = GUARDS, []
+    init_state, init, run_epoch = (gan.init_train_state, Trainer.__init__,
+                                   Trainer.run_epoch)
+
+    def init_train_state(*args, **kw):
+        state = init_state(*args, **kw)
+        if building:
+            building[-1].mark("init_train_state", state.gen)
+        return state
+
+    def guarded_init(self, *args, **kw):
+        guard = GeneratorGuard(f"{type(self).__name__} #{len(guards)}")
+        building.append(guard)
+        try:
+            init(self, *args, **kw)
+        finally:
+            building.pop()
+        guard.mark("Trainer.__init__", self.state.gen)
+        self.gen_guard = guard
+        guards.append(guard)
+
+    def guarded_run_epoch(self, epoch):
+        guard = getattr(self, "gen_guard", None)
+        if epoch != 1 or guard is None:
+            return run_epoch(self, epoch)
+        phase = self.timer.phase
+
+        @contextlib.contextmanager
+        def marked(name):
+            with phase(name):
+                yield
+            guard.mark(f"epoch 1 {name}", self.state.gen)
+        self.timer.phase = marked
+        try:
+            means = run_epoch(self, epoch)
+        finally:
+            del self.timer.phase
+        guard.mark("end of epoch 1", self.state.gen)
+        return means
+
+    gan.init_train_state = init_train_state
+    Trainer.__init__ = guarded_init
+    Trainer.run_epoch = guarded_run_epoch
+
+    def undo():
+        gan.init_train_state = init_state
+        Trainer.__init__ = init
+        Trainer.run_epoch = run_epoch
+
+    if record_file:
+        def write():
+            with open(record_file, "w") as f:
+                json.dump([g.record() for g in guards], f)
+        atexit.register(write)
+    return undo
+
+
+def guard_records(guards: list, gate: str = None) -> list:
+    """The guards' records (a resumed Trainer starts past epoch 1: its
+    points are (a) and (b) only); with `gate`, raises naming the first
+    violation, or when none of them ran epoch 1."""
+    recs = [g.record() if isinstance(g, GeneratorGuard) else g
+            for g in guards]
+    bad = [r for r in recs if r["violation"] is not None]
+    if gate and bad:
+        raise AssertionError(f"{gate}: the generator changed before its "
+                             f"first step: {bad[0]}")
+    if gate and not any("end of epoch 1" in r["points"] for r in recs):
+        raise AssertionError(f"{gate}: no guarded Trainer ran epoch 1: "
+                             f"{recs}")
+    return recs
+
+
+def guard_summary(recs: list) -> dict:
+    """Trainers guarded, those that ran epoch 1, violations (the first
+    named)."""
+    epoch1 = [r for r in recs if "end of epoch 1" in r["points"]]
+    bad = [r for r in recs if r["violation"] is not None]
+    return {"trainers": len(recs), "ran_epoch_1": len(epoch1),
+            "points_per_epoch_1": max((len(r["points"]) for r in epoch1),
+                                      default=0),
+            "violations": len(bad),
+            "first_violation": bad[0] if bad else None}
+
+
+# a CLI run under the guard: argv as cli/train's own; the records go to
+# NELE_GUARD_FILE at exit
+GUARDED_CLI = """
+import os, runpy
+from chip_smoke import install_generator_guard
+install_generator_guard(os.environ["NELE_GUARD_FILE"])
+runpy.run_module("nelegan_tpu_torch.cli.train", run_name="__main__")
+"""
+
+
+def guarded_env(run: str, env: dict = None) -> dict:
+    """The environment of a guarded CLI run into `run`: the repository on
+    PYTHONPATH (the script imports this file), the records' file."""
+    env = dict(os.environ if env is None else env)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (
+        str(REPO), env.get("PYTHONPATH"))))
+    env["NELE_GUARD_FILE"] = f"{run}/generator_guard.json"
+    return env
+
+
+def read_guard(run: str, attempt: int = None) -> list:
+    """The guard records a guarded CLI run into `run` wrote (one torchrun
+    attempt's with `attempt`)."""
+    suffix = "" if attempt is None else f".{attempt}"
+    with open(f"{run}/generator_guard.json{suffix}") as f:
+        return json.load(f)
+
+
 def write_trainer_corpus(root: str, n_train: int, n_test: int,
                          seed: int) -> None:
     """Train/{Clean,Noise,MultiEnh} and Test/{Clean,Noise} under root as
@@ -3275,12 +3509,17 @@ def trainer_phase(dev, tmp: str) -> dict:
     deterministic = cudnn.deterministic
     cudnn.deterministic = True
     SmokeTrainer.tally = tally = Tally()
+    n_guards = len(GUARDS)
     try:
         res = trainer_checks(dev, tmp)
     finally:
         tally.restore()
         SmokeTrainer.tally = None
         cudnn.deterministic = deterministic
+    res["generator_guard"] = guard_summary(guard_records(
+        GUARDS[n_guards:], gate="trainer phase"))
+    print(f"trainer phase, the generator through epoch 1: "
+          f"{res['generator_guard']}")
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"trainer phase: {res['phase_s']:.1f} s")
     return res
@@ -3437,6 +3676,7 @@ def trainer_checks(dev, tmp: str) -> dict:
                                  ulp.state.d.parameters(),
                                  ulp.state.dq.parameters()):
             p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    ulp.gen_guard.rebase("one float32 ulp up (the control)", ulp.state.gen)
     ulp.run(2)
     cpu_origin = gan.init_train_state(pcfg, pcfg.train.seed, "cpu")
     if ([(k, sorted(v)) for k, v in sorted(base.scored.items())]
@@ -3661,6 +3901,8 @@ def mixed_precision_phase(dev, corpus: str, tmp: str,
     if not tensors_f32_finite(t.state):
         raise AssertionError("bf16 trainer: a tensor is not float32 and "
                              "finite")
+    guarded = guard_summary(guard_records([t.gen_guard],
+                                          gate="bf16 trainer"))
     for rec in t.epochs:
         for name, n in rec["launches"].items():
             launches[name] += n
@@ -3677,6 +3919,7 @@ def mixed_precision_phase(dev, corpus: str, tmp: str,
     res = {"parity": parity, "step_losses": step_losses, "moved": moved,
            "steps": times, "trainer_epochs": epochs,
            "trainer_f32_epochs": beside, "launches": launches,
+           "generator_guard": guarded,
            "phase_s": time.perf_counter() - t_phase}
     print(f"mixed-precision phase: {res['phase_s']:.1f} s")
     return res
@@ -3921,6 +4164,7 @@ def dp_trainer_rank(mesh, cfg: Config, corpus: str, run: str,
     disable_tf32()
     torch.backends.cudnn.deterministic = True
     SmokeTrainer.tally = tally = Tally()
+    undo = install_generator_guard()
     try:
         t = DpSmokeTrainer(trainer_paths(corpus, run), cfg,
                            metric_set=SCORE_METRICS, data_parallel=True,
@@ -3935,9 +4179,10 @@ def dp_trainer_rank(mesh, cfg: Config, corpus: str, run: str,
         t.start_epoch = DP_EPOCHS + 1
         t.run(DP_EPOCHS + 1)
     finally:
+        undo()
         tally.restore()
         SmokeTrainer.tally = None
-    return {"rank": mesh.rank,
+    return {"rank": mesh.rank, "generator_guard": t.gen_guard.record(),
             "epochs": [{k: v for k, v in r.items() if k != "d_step_losses"}
                        for r in t.epochs],
             "scored": t.scored, "busy": t.busy,
@@ -4107,7 +4352,9 @@ def step_collective_ms(rec: dict) -> dict:
 # the CLI with torch's check for operations that have no deterministic
 # implementation on, warning and not raising: argv as the CLI's own
 DETERMINISM_PROBE = (
-    "import runpy, torch; "
+    "import os, runpy, torch; "
+    "from chip_smoke import install_generator_guard; "
+    "install_generator_guard(os.environ['NELE_GUARD_FILE']); "
     "torch.use_deterministic_algorithms(True, warn_only=True); "
     "runpy.run_module('nelegan_tpu_torch.cli.train', run_name='__main__')")
 
@@ -4146,21 +4393,24 @@ def cli_world_of_one(tmp: str, corpus: str, device: str = "cuda") -> dict:
                 "--checkpoints", f"{run}/chkpt", "--log-file",
                 f"{run}/log.txt"]
     dp, plain = f"{tmp}/cli_dp", f"{tmp}/cli_plain"
-    cmds = {"dp": [sys.executable, "-m", "torch.distributed.run",
-                   "--standalone", "--nproc-per-node", "1", "-m",
-                   "nelegan_tpu_torch.cli.train", "--data-parallel",
-                   *args(dp)],
-            "plain": [sys.executable, "-m", "nelegan_tpu_torch.cli.train",
-                      *args(plain)]}
-    seconds = {}
-    for k, cmd in cmds.items():
+    script = Path(tmp, "guarded_cli.py")
+    script.write_text(GUARDED_CLI)
+    cmds = {"dp": (dp, [sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", "1",
+                        str(script), "--data-parallel", *args(dp)]),
+            "plain": (plain, [sys.executable, str(script), *args(plain)])}
+    seconds, guards = {}, {}
+    for k, (run, cmd) in cmds.items():
+        os.makedirs(run, exist_ok=True)
         t0 = time.perf_counter()
         out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                             timeout=600)
+                             timeout=600, env=guarded_env(run))
         seconds[k] = time.perf_counter() - t0
         if out.returncode != 0:
             raise AssertionError(f"cli/train ({k}) exited {out.returncode}:"
                                  f"\n{(out.stdout + out.stderr)[-4000:]}")
+        guards[k] = guard_summary(guard_records(
+            read_guard(run), gate=f"cli/train ({k})"))
     (sa, ka, ea, ra, xa), (sb, kb, eb, rb, xb) = (cli_checkpoint(dp),
                                                   cli_checkpoint(plain))
     with open(f"{dp}/log.txt") as f, open(f"{plain}/log.txt") as g:
@@ -4174,9 +4424,9 @@ def cli_world_of_one(tmp: str, corpus: str, device: str = "cuda") -> dict:
                 (abs(a - b) for m in xb["history"]
                  for a, b in zip(xa["history"][m], xb["history"][m])),
                 default=0.0),
-            "seconds": seconds,
+            "seconds": seconds, "generator_guard": guards,
             "side_by_side": cli_side_by_side(tmp, args),
-            "recovery": cli_world_recovery(tmp, args, dp)}
+            "recovery": cli_world_recovery(tmp, args, dp, script)}
 
 
 # the CLI as torchrun's entry script for the recovery of a world: on the
@@ -4188,9 +4438,11 @@ def cli_world_of_one(tmp: str, corpus: str, device: str = "cuda") -> dict:
 RECOVERY_CLI = """
 import atexit, json, os, runpy, time
 start = time.time()
+from chip_smoke import install_generator_guard
 from nelegan_tpu_torch import kernels
 from nelegan_tpu_torch.train import loop, resilience
 attempt = resilience.restart_count()
+install_generator_guard("%s.%d" % (os.environ["NELE_GUARD_FILE"], attempt))
 fault = int(os.environ["NELE_FAULT_EPOCH"])
 run_epoch = loop.Trainer.run_epoch
 def faulty(self, epoch):
@@ -4237,7 +4489,7 @@ def torchrun_cli(entry: list, args: list, restarts: int = 0,
     return text, seconds
 
 
-def cli_world_recovery(tmp: str, args, by_hand: str) -> dict:
+def cli_world_recovery(tmp: str, args, by_hand: str, guarded: Path) -> dict:
     """`cli/train --data-parallel --max-retries 1` under `torch.distributed
     .run --max-restarts 1`, a world of one over NCCL, RECOVERY_EPOCHS
     epochs, through RECOVERY_CLI (a fault at the start of FAULT_EPOCH of
@@ -4245,16 +4497,17 @@ def cli_world_recovery(tmp: str, args, by_hand: str) -> dict:
     FAULT_EPOCH - 1) resumed by hand with `--resume` to RECOVERY_EPOCHS:
     log.txt and the checkpoint's state, key, replay and history bit for
     bit; each attempt's launches and seconds, the agent's restart time
-    (from the first attempt's exit to the second's first line)."""
-    _, by_hand_s = torchrun_cli(["-m", "nelegan_tpu_torch.cli.train"],
-                                args(by_hand, RECOVERY_EPOCHS) + ["--resume"])
+    (from the first attempt's exit to the second's first line).  Every
+    run under the generator guard (`guarded`, GUARDED_CLI): the resumed
+    runs start past epoch 1, so their guards hold points (a) and (b)."""
+    _, by_hand_s = torchrun_cli(
+        [str(guarded)], args(by_hand, RECOVERY_EPOCHS) + ["--resume"],
+        env=guarded_env(by_hand))
     rec = f"{tmp}/cli_recovered"
     os.makedirs(rec)
     script = Path(rec, "recovery_cli.py")
     script.write_text(RECOVERY_CLI)
-    env = dict(os.environ, NELE_FAULT_EPOCH=str(FAULT_EPOCH),
-               PYTHONPATH=os.pathsep.join(filter(None, (
-                   str(REPO), os.environ.get("PYTHONPATH")))))
+    env = dict(guarded_env(rec), NELE_FAULT_EPOCH=str(FAULT_EPOCH))
     text, world_s = torchrun_cli(
         [str(script)], args(rec, RECOVERY_EPOCHS) + ["--max-retries", "1"],
         restarts=1, env=env)
@@ -4272,11 +4525,15 @@ def cli_world_recovery(tmp: str, args, by_hand: str) -> dict:
                 and a["launches"]["linrec"] > 0):
             raise AssertionError(f"world recovery: attempt {a['attempt']} "
                                  f"launched {a['launches']}")
+    guards = guard_summary(guard_records(
+        read_guard(by_hand) + read_guard(rec, 0) + read_guard(rec, 1),
+        gate="world recovery"))
     (sa, ka, ea, ra, xa), (sb, kb, eb, rb, xb) = (cli_checkpoint(rec),
                                                   cli_checkpoint(by_hand))
     with open(f"{rec}/log.txt") as f, open(f"{by_hand}/log.txt") as g:
         log_equal = f.read() == g.read()
     return {"log": log_equal, "state": states_equal(sa, sb),
+            "generator_guard": guards,
             "key": torch.equal(ka.get_state(), kb.get_state()),
             "epoch": ea == eb == RECOVERY_EPOCHS,
             "replay": ra.replace(rec, "") == rb.replace(by_hand, ""),
@@ -4301,7 +4558,7 @@ def cli_side_by_side(tmp: str, args) -> dict:
                 procs.append(subprocess.Popen(
                     [sys.executable, "-W", "default", "-c",
                      DETERMINISM_PROBE, *args(r)], cwd=REPO, stdout=out,
-                    stderr=subprocess.STDOUT))
+                    stderr=subprocess.STDOUT, env=guarded_env(r)))
         codes = [p.wait(timeout=600) for p in procs]
     finally:
         for p in procs:
@@ -4321,7 +4578,10 @@ def cli_side_by_side(tmp: str, args) -> dict:
                     for o in outs for ln in o.splitlines()
                     if "UserWarning:" in ln and "determinis" in ln})
     (sa, ka, _, ra, xa), (sb, kb, _, rb, xb) = map(cli_checkpoint, runs)
-    return {"state": states_equal(sa, sb),
+    # reported, not gated, as the rest of the pair
+    guards = guard_summary(guard_records(
+        [r for run in runs for r in read_guard(run)]))
+    return {"state": states_equal(sa, sb), "generator_guard": guards,
             "key": torch.equal(ka.get_state(), kb.get_state()),
             "replay": ra.replace(runs[0], "") == rb.replace(runs[1], ""),
             "history": xa["history"] == xb["history"],
@@ -4357,8 +4617,10 @@ def nccl_refusal(dev) -> dict:
 # variables that steer torch, CUDA and NCCL) into NELE_HUNT_DIR
 HUNT_CLI = """
 import atexit, json, os, runpy, torch
+from chip_smoke import install_generator_guard
 from nelegan_tpu_torch.train import loop
 run = os.environ["NELE_HUNT_DIR"]
+install_generator_guard(os.path.join(run, "generator_guard.json"))
 init = loop.Trainer.__init__
 def kept_init(self, *args, **kw):
     init(self, *args, **kw)
@@ -4445,9 +4707,10 @@ def hunt_wait(procs: dict) -> dict:
         try:
             with open(f"{run}/record.json") as f:
                 rec = json.load(f)
+            guard = guard_summary(guard_records(read_guard(run)))
         except FileNotFoundError:
-            rec = None
-        out[run] = {"code": code, "record": rec,
+            rec = guard = None
+        out[run] = {"code": code, "record": rec, "generator_guard": guard,
                     "tail": text[-600:] if code else ""}
     return out
 
@@ -4478,9 +4741,13 @@ def hunt_diff(a: str, b: str) -> dict:
               or Path(wa[k]).read_bytes() != Path(wb[k]).read_bytes()]
     (sa, ka, _, ra, xa), (sb, kb, _, rb, xb) = map(cli_checkpoint, (a, b))
     fa, fb = _flat_tensors(sa), _flat_tensors(sb)
-    ia, ib = (torch.load(f"{r}/init.pt", weights_only=True) for r in (a, b))
-    init = tensor_diffs(*({f"{m}.{k}": v for m in x for k, v in x[m].items()}
-                          for x in (ia, ib)))
+    ia, ib = ({f"{m}.{k}": v for m in x for k, v in x[m].items()}
+              for x in (torch.load(f"{r}/init.pt", weights_only=True)
+                        for r in (a, b)))
+    init = tensor_diffs(ia, ib)
+    # which elements of an initial tensor differ: a half, a run, or all
+    where = {k: changed_elements(ia[k].reshape(-1), ib[k].reshape(-1))
+             for k, *_ in init[:2]}
     scores = []
     for ea, eb in zip(json.loads(ra), json.loads(rb)):
         for m, x, y in zip(SCORE_NAMES, ea["scores"], eb["scores"]):
@@ -4492,17 +4759,23 @@ def hunt_diff(a: str, b: str) -> dict:
     return {"equal": not (differ or scores or states or init) and log
             and xa["history"] == xb["history"]
             and torch.equal(ka.get_state(), kb.get_state()),
-            "init_differs": init[:6], "wavs": len(wa),
+            "init_differs": init[:6], "init_elements": where,
+            "wavs": len(wa),
             "wavs_differ": len(differ), "first_wavs": differ[:4],
             "scores_differ": len(scores), "first_scores": scores[:4],
             "log": log, "history": xa["history"] == xb["history"],
             "tensors_differ": len(states), "first_tensors": states[:6]}
 
 
-def fault_hunt(rounds: int) -> dict:
+def fault_hunt(rounds: int, seconds: float = None) -> dict:
     """Part of no phase: the experiments above; prints and returns each
-    run against the first lone run.  The output directories of a run that
-    differs are copied under build/fault_hunt."""
+    run against the first lone run.  Every run under the generator guard
+    (HUNT_CLI): a run whose generator changed in epoch 1 is counted under
+    "generator_changed" and its guard names the point, the tensor and the
+    changed elements.  With `seconds`, no round starts after that many
+    seconds from the start.  The output directories of a run that differs
+    are copied under build/fault_hunt."""
+    t_hunt = time.perf_counter()
     kernels.build()             # before the CLIs start: no build race
     BUILD.mkdir(parents=True, exist_ok=True)
     keep_dir = BUILD / "fault_hunt"
@@ -4521,7 +4794,8 @@ def fault_hunt(rounds: int) -> dict:
                 res["runs"][name] = {"form": form, **w, "vs_alone0": d}
                 print(f"fault hunt: {name} ({form}): {res['runs'][name]}",
                       flush=True)
-                if d is not None and not d["equal"]:
+                if (d is not None and not d["equal"]) or (
+                        w["generator_guard"] or {}).get("violations"):
                     # the wavs, logs and records; not the checkpoints
                     for r in (run, ref):
                         shutil.copytree(
@@ -4553,6 +4827,9 @@ def fault_hunt(rounds: int) -> dict:
                 ballast.kill()
                 ballast.wait()
         for i in range(rounds):
+            if seconds and time.perf_counter() - t_hunt > seconds:
+                break
+            t_round = time.perf_counter()
             dp, plain = f"{tmp}/side{i}_dp", f"{tmp}/side{i}_plain"
             procs = {dp: hunt_start(corpus, dp, True),
                      plain: hunt_start(corpus, plain, False)}
@@ -4562,18 +4839,22 @@ def fault_hunt(rounds: int) -> dict:
             record("side by side", waits)
             d = (hunt_diff(dp, plain) if all(w["code"] == 0 for w in
                                              waits.values()) else None)
-            res["runs"][f"side{i}_pair"] = {"form": "dp against plain",
-                                            "diff": d}
+            res["runs"][f"side{i}_pair"] = {
+                "form": "dp against plain", "diff": d,
+                "seconds": time.perf_counter() - t_round}
             print(f"fault hunt: side{i} dp against plain: {d}", flush=True)
-    forms = collections.defaultdict(lambda: [0, 0, 0])
+    forms = collections.defaultdict(lambda: [0, 0, 0, 0])
     for r in res["runs"].values():
         d = r.get("vs_alone0", r.get("diff"))
         c = forms[r["form"]]
         c[0] += 1
         c[1] += d is not None and not d["equal"]
         c[2] += d is None and r.get("code", 0) != 0
-    res["counts"] = {k: dict(zip(("runs", "differ", "failed"), v))
+        c[3] += bool((r.get("generator_guard") or {}).get("violations"))
+    res["counts"] = {k: dict(zip(("runs", "differ", "failed",
+                                  "generator_changed"), v))
                      for k, v in forms.items()}
+    res["seconds"] = time.perf_counter() - t_hunt
     return res
 
 
@@ -4619,6 +4900,10 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
         args=(trained_config(), corpus, f"{tmp}/dp", single["scored"]),
         devices=[dev] * DP_WORLD, timeout=600)
     world_s = time.perf_counter() - t0
+    dp_guard = guard_summary(guard_records(
+        [r["generator_guard"] for r in ranks], gate="dp ranks"))
+    print(f"dp ranks, the generator through epoch 1 (replicate between "
+          f"points a and b): {dp_guard}")
     tp = tp_check([r["tp"] for r in ranks])
     r0 = ranks[0]
     for r in ranks:             # IMCRA and linrec, every rank and epoch
@@ -4735,7 +5020,7 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
     res = {"nccl_two_ranks_one_card": nccl, "nccl_world_of_one": nccl_one,
            "scoring_share": share, "world_seconds": world_s,
            "vs_single": vs_single, "timing": timing, "cli_world_of_one": cli,
-           "tp": tp,
+           "tp": tp, "dp_generator_guard": dp_guard,
            "launches_per_rank": [{k: sum(rec["launches"][k]
                                          for rec in r["epochs"]
                                          if rec["epoch"] <= DP_EPOCHS)
@@ -4743,6 +5028,480 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
                                  for r in ranks],
            "phase_s": time.perf_counter() - t_phase}
     print(f"parallel phase: {res['phase_s']:.1f} s")
+    return res
+
+
+# ------------------------------------------------------------ eval phase
+EVAL_UTTS, EVAL_BATCH, EVAL_CPU_UTTS = 64, 8, 8
+EVAL_METRICS = ("siib", "haspi", "estoi", "pesq", "visqol")
+# card against the CPU run of the same CLI, each mean (eval_reverb) or
+# value (collect_norm) relative to the CPU's
+EVAL_BARS = {"siib": 1e-3, "haspi": 1e-4, "estoi": 1e-4, "pesq": 1e-4,
+             "visqol": 1e-4}
+RIR_T60S = (0.3, 0.9)       # seconds: 4800 and 14400 taps at 16 kHz
+RIR_FIELDS = {"White": 0.3, "Babble": 0.3, "Pink": 0.9, "Hum": 0.9}
+FIR_BAR = 1e-6              # fir_filter in float64 against lfilter
+ASL_ROWS = 16               # BASELINE.json config 2's batch
+ASL_GOLDEN_BAR, ASL_F64_BAR = 1e-6, 1e-9
+MMSE_BAR = 1e-5             # complex64 on the card against the CPU float64
+
+# the CPU references of the eval phase, in a process of their own: argv
+# as JSON (eval_reverb's, collect_norm's); prints one line
+EVAL_CPU_REFERENCE = """
+import json, sys, torch
+torch.set_num_threads(2)
+from nelegan_tpu_torch.cli import collect_norm, eval_reverb
+reverb_argv, norm_argv = json.loads(sys.argv[1])
+means = eval_reverb.main(reverb_argv)
+acc = collect_norm.main(norm_argv)
+print("CPU_REFERENCE " + json.dumps({
+    "eval_reverb": means,
+    "collect_norm": {m + "|" + c: v for (m, c), v in acc.items()}}))
+"""
+
+
+def synthetic_rir(t60: float, seed: int) -> np.ndarray:
+    """A room impulse response of T60 `t60` seconds at 16 kHz: a
+    direct-path peak of 0.9 at a seeded delay, then seeded Gaussian noise
+    decaying by 60 dB over t60 (amplitude 0.05 at its start)."""
+    rng = np.random.RandomState(seed)
+    n = int(round(t60 * 16000))
+    delay = int(rng.randint(16, 160))
+    h = np.zeros(n)
+    h[delay] = 0.9
+    t = np.arange(n - delay - 1) / 16000.0
+    h[delay + 1:] = 0.05 * rng.randn(t.size) * 10.0 ** (-3.0 * t / t60)
+    return h
+
+
+def rel_gap(a: float, b: float) -> float:
+    """|a - b| / |b| (|a - b| where b is 0)."""
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Each (module, name) of `targets` wrapped for the block: its calls'
+    (name, start, end) on the host clock, the device synchronised before
+    the end is read."""
+    spans, undo = [], []
+    for module, name in targets:
+        fn = getattr(module, name)
+
+        def timed(*args, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            spans.append((_name, t0, time.perf_counter()))
+            return out
+        setattr(module, name, timed)
+        undo.append((module, name, fn))
+    try:
+        yield spans
+    finally:
+        for module, name, fn in reversed(undo):
+            setattr(module, name, fn)
+
+
+def fir_checks(dev, signals: dict, rirs: dict) -> dict:
+    """`fir_filter` on the card, each RIR over each signal, against
+    `lfilter(rir, 1, x)` in float64 on the host: the largest error of each
+    output relative to its largest |y|, in float64 (FIR_BAR) and, reported,
+    in float32, the CLIs' dtype (its FFT of n + m points: Bluestein's
+    round-off where n + m has a large prime factor); the float32 call's
+    time."""
+    from scipy.signal import lfilter
+    out = {}
+    for rname, h in rirs.items():
+        for sname, x in signals.items():
+            want = lfilter(h.astype(np.float64), [1.0],
+                           x.astype(np.float64))
+            errs = {}
+            for dt in (torch.float64, torch.float32):
+                got = fir_filter(torch.as_tensor(h, dtype=dt, device=dev),
+                                 torch.as_tensor(x, dtype=dt, device=dev))
+                errs[str(dt)[6:]] = float(np.abs(got.cpu().numpy() - want)
+                                          .max() / np.abs(want).max())
+            h32 = torch.as_tensor(h, dtype=torch.float32, device=dev)
+            x32 = torch.as_tensor(x, dtype=torch.float32, device=dev)
+            out[f"{rname} x {sname}"] = dict(
+                errs, taps=h.size, samples=x.size,
+                f32_ms=cuda_ms(lambda: fir_filter(h32, x32), calls=10))
+    print(f"fir_filter on the card against lfilter (float64 on the host), "
+          f"error over each output's largest |y|: {out}; bar FIR_BAR "
+          f"{FIR_BAR} (float64)")
+    if not all(r["float64"] <= FIR_BAR for r in out.values()):
+        raise AssertionError(f"fir_filter against lfilter: {out}")
+    return out
+
+
+def reverb_argv(corpus: str, ckpt: str, rir_paths: list, utts: int,
+                device: str) -> list:
+    """cli/eval_reverb's argv: `utts` test utterances, batch EVAL_BATCH,
+    EVAL_METRICS, NO_rev and each RIR."""
+    return (["--test-clean", f"{corpus}/Test/Clean", "--test-noise",
+             f"{corpus}/Test/Noise", "--checkpoint", ckpt, "--num-utts",
+             str(utts), "--batch-size", str(EVAL_BATCH), "--metrics",
+             ",".join(EVAL_METRICS), "--rir", "NO_rev"]
+            + [a for p in rir_paths for a in ("--rir", p)]
+            + ["--device", device])
+
+
+def eval_reverb_card(argv: list) -> dict:
+    """`cli/eval_reverb` with `argv` on the card through its own main;
+    its launches (counted from just before to just after).  Per condition:
+    seconds, utterances/s, and the time in enhancement (featurize_batch +
+    enhance_batch) and in score_batch."""
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    with timed_calls(((pipeline, "featurize_batch"),
+                      (pipeline, "enhance_batch"),
+                      (eval_reverb, "score_batch"))) as spans:
+        means = eval_reverb.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = launch_delta(before)
+    means = {os.path.basename(k): v for k, v in means.items()}
+    # one score_batch call ends each condition
+    conditions, start = {}, t0
+    ends = [s for s in spans if s[0] == "score_batch"]
+    for cond, (_, s0, s1) in zip(means, ends):
+        enh = sum(b - a for n, a, b in spans
+                  if n != "score_batch" and start <= a and b <= s0)
+        conditions[cond] = {
+            "seconds": s1 - start,
+            "utterances_per_s": EVAL_UTTS / (s1 - start),
+            "enhance_s": enh, "score_batch_s": s1 - s0,
+            "enhance_share": enh / (s1 - start),
+            "score_share": (s1 - s0) / (s1 - start)}
+        start = s1
+    batches = sum(1 for s in spans if s[0] == "featurize_batch")
+    return {"means": means, "seconds": seconds, "conditions": conditions,
+            "launches": launches, "featurized_batches": batches}
+
+
+def collect_norm_card(argv: list, root: str) -> dict:
+    """`cli/collect_norm` with `argv` over EVAL_UTTS utterances on the
+    card through its own main, calibrated and then raw (--raw): each
+    distribution, seconds."""
+    out = {}
+    for kind, extra in (("calibrated", []), ("raw", ["--raw"])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = collect_norm.main(argv + extra + [
+            "--num", str(EVAL_UTTS), "--out", f"{root}/norm_{kind}",
+            "--device", "cuda"])
+        out[kind] = {f"{m}|{c}": v for (m, c), v in acc.items()}
+        out[f"{kind}_s"] = time.perf_counter() - t0
+    return out
+
+
+def export_checks(dev, root: str, ckpt: str) -> dict:
+    """`cli/export_torch` on the card and on the CPU, generator-only and
+    full: every state dict bit-equal to the CPU export and to the
+    checkpoint's tensors; the card's exported enhance-model in a fresh
+    Generator on the card gives the PCM16 of the checkpoint's generator
+    bit for bit on one serving batch (the eight requests of the 36864
+    bucket, featurized once with the IMCRA kernel)."""
+    blob = torch.load(checkpoint._resolve(ckpt), map_location="cpu",
+                      weights_only=True)["state"]
+    out = {}
+    for kind, extra in (("gen_only", ["--generator-only"]), ("full", [])):
+        got = {}
+        for d in ("cuda", "cpu"):
+            path = f"{root}/export_{kind}_{d}.pt"
+            export_torch.main(["--checkpoint", ckpt, "--out", path,
+                               "--device", d] + extra)
+            got[d] = convert.reference_state_dicts(path)
+        slots = ["gen"] + ([] if extra else ["d", "dq"])
+
+        def same(a, b):
+            return a.keys() == b.keys() and all(
+                a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                for k in a)
+        out[kind] = {
+            "slots": sorted(got["cuda"]),
+            "card_equals_cpu": sorted(got["cuda"]) == sorted(got["cpu"])
+            and all(same(got["cuda"][k], got["cpu"][k]) for k in got["cpu"]),
+            "equals_checkpoint": sorted(got["cuda"]) == sorted(slots)
+            and all(same(got["cuda"][s], blob[s]) for s in slots)}
+    reqs = [r for r in build_requests() if r[0].size > BUCKET - 4096]
+    cp, lens = pipeline.reflect_pad_batch([r[0] for r in reqs], BUCKET)
+    npd, _ = pipeline.reflect_pad_batch([r[1] for r in reqs], BUCKET)
+    loaded = Generator.from_config(Config().model)
+    loaded.load_state_dict(convert.load_reference_checkpoint(
+        f"{root}/export_gen_only_cuda.pt"), strict=True)
+    source, _, _ = checkpoint.load_generator(ckpt, None, dev)
+    with torch.inference_mode():
+        feats = pipeline.featurize_batch(cp, npd, lens, device=dev)
+        pcm = [pipeline.pcm16_quantize_i16(pipeline.enhance_batch(
+            g, feats, device=dev)[0]).cpu() for g in (loaded.to(dev).eval(),
+                                                      source)]
+    out["serving_batch"] = {"rows": len(reqs),
+                            "pcm16_equal": torch.equal(*pcm)}
+    print(f"export_torch on the card against the CPU and the checkpoint, "
+          f"and the exported generator on a serving batch: {out}")
+    if not (all(out[k]["card_equals_cpu"] and out[k]["equals_checkpoint"]
+                for k in ("gen_only", "full"))
+            and out["serving_batch"]["pcm16_equal"] and len(reqs) == 8):
+        raise AssertionError(f"export_torch: {out}")
+    return out
+
+
+def asl_rows() -> np.ndarray:
+    """[ASL_ROWS, 33536] float64: the golden utterance (row 0, as
+    tests/goldens/asl_p56.npz holds it), then rows cut from it at seeded
+    offsets (tiled round) and scaled by seeded gains in [0.05, 3]."""
+    x = np.load(GOLDEN)["clean"]
+    rng = np.random.RandomState(56)
+    rows = [x] + [np.roll(x, -int(rng.randint(1, x.size)))
+                  * float(rng.uniform(0.05, 3.0))
+                  for _ in range(ASL_ROWS - 1)]
+    return np.stack(rows)
+
+
+def asl_checks(dev) -> dict:
+    """P.56 (`pipeline.active_speech_level_batch`, `dsp/asl_p56.py`) on
+    the card in float64 at BASELINE.json config 2's shape: the golden row
+    against tests/goldens/asl_p56.npz (ASL_GOLDEN_BAR, all three values of
+    `asl_p56_rows`), every row against the CPU's float64 (ASL_F64_BAR);
+    utterances/s (host clock, rows already on the card), the device's busy
+    share (torch.profiler) and the host bisection's share."""
+    g = np.load(REPO / "tests" / "goldens" / "asl_p56.npz")
+    rows = asl_rows()
+    x = torch.from_numpy(rows).to(dev)
+    got = pipeline.active_speech_level_batch(x, device=dev).cpu().numpy()
+    want = pipeline.active_speech_level_batch(rows, device="cpu").numpy()
+    three = asl_p56.asl_p56_rows(x[:1])
+    golden = {k: rel_gap(float(v[0]), float(g[k][0]))
+              for k, v in zip(("asl_msq", "actfact", "c0"), three)}
+    golden["asl_msq_from_batch"] = rel_gap(float(got[0]) ** 2,
+                                           float(g["asl_msq"][0]))
+    cpu = float(np.max(np.abs(got - want) / np.abs(want)))
+    ms = host_ms(lambda: pipeline.active_speech_level_batch(x, device=dev))
+    bisect = asl_p56._bisect
+    host = [0.0]
+
+    def timed_bisect(*args):
+        t0 = time.perf_counter()
+        try:
+            return bisect(*args)
+        finally:
+            host[0] += time.perf_counter() - t0
+    asl_p56._bisect = timed_bisect
+    try:
+        ms_host = host_ms(lambda: pipeline.active_speech_level_batch(
+            x, device=dev), reps=5)
+        bisect_ms = 1e3 * host[0] / 5
+    finally:
+        asl_p56._bisect = bisect
+    prof = profile_step(lambda: pipeline.active_speech_level_batch(
+        x, device=dev), ms, reps=3, label="asl_p56_profile")
+    out = {"shape": list(rows.shape), "golden_rel": golden,
+           "cpu_f64_rel": cpu, "ms": ms,
+           "utterances_per_s": ASL_ROWS / (ms / 1e3),
+           "busy_share": prof["busy_share"],
+           "device_ms": prof["device_ms_per_batch"],
+           "device_ops": prof["device_ops_per_batch"],
+           "bisection_ms": bisect_ms,
+           "bisection_share": bisect_ms / ms_host,
+           "top": prof["top"][:5]}
+    print(f"P.56 on the card, [{ASL_ROWS}, {rows.shape[1]}] float64: "
+          f"{out}; bars ASL_GOLDEN_BAR {ASL_GOLDEN_BAR}, ASL_F64_BAR "
+          f"{ASL_F64_BAR}")
+    if not (all(v <= ASL_GOLDEN_BAR for v in golden.values())
+            and cpu <= ASL_F64_BAR and np.isfinite(got).all()):
+        raise AssertionError(f"P.56: {out}")
+    return out
+
+
+def mmse_checks(dev) -> dict:
+    """`mmse_lsa_enhance` whole on the golden utterance's noisy STFT
+    (computed in float64 on the host), complex64 on the card against the
+    CPU's float64: each element's error relative to its magnitude
+    (MMSE_BAR); its time, its IMCRA launches, and the device operations
+    a frame of its host loop."""
+    g = np.load(GOLDEN)
+    spec = stft(torch.from_numpy(g["clean"] + g["noise"]))      # [257, T]
+    want = mmse.mmse_lsa_enhance(spec)
+    x = spec.to(torch.complex64).to(dev)
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    got = mmse.mmse_lsa_enhance(x)
+    torch.cuda.synchronize()
+    launches = launch_delta(before)
+    d = (got.cpu().to(want.dtype) - want).abs()
+    mag = want.abs()
+    rel = float((d[mag > 0] / mag[mag > 0]).max())
+    frames = spec.shape[-1]
+    ms = host_ms(lambda: mmse.mmse_lsa_enhance(x))
+    prof = profile_step(lambda: mmse.mmse_lsa_enhance(x), ms, reps=3,
+                        label="mmse_profile")
+    out = {"shape": list(spec.shape), "rel_max": rel,
+           "abs_over_largest": float(d.max() / mag.max()),
+           "launches": launches, "ms": ms, "ms_per_frame": ms / frames,
+           "device_ops_per_frame": prof["device_ops_per_batch"] / frames,
+           "busy_share": prof["busy_share"], "top": prof["top"][:5]}
+    print(f"mmse_lsa_enhance on the card (complex64) against the CPU "
+          f"(float64): {out}; bar MMSE_BAR {MMSE_BAR}")
+    if not (rel <= MMSE_BAR and launches["imcra_scan"] == 1
+            and torch.isfinite(torch.view_as_real(got)).all()):
+        raise AssertionError(f"mmse_lsa_enhance: {out}")
+    return out
+
+
+def eval_phase(dev, tmp: str) -> dict:
+    """The entry points of evaluation and calibration on the card, each
+    through its own main or function, float32 unless said, TF32 off,
+    deterministic cuDNN; every check raises.  Inputs made here from
+    seeds: tools/make_synth_corpus.py run as it is (seed 1234, EVAL_UTTS
+    training and test utterances), synthetic RIRs of RIR_T60S (a direct
+    path, a decaying tail), the seeded full-width checkpoint.
+    (1) `fir_filter` against lfilter; (2) `cli/eval_reverb` (NO_rev and
+    both RIRs, all five metrics; IMCRA once a batch and condition, linrec
+    once a PESQ call), its first EVAL_CPU_UTTS utterances again on the
+    card against the same CLI on the CPU (EVAL_BARS on each mean); (3)
+    `cli/collect_norm` with --rir-dir (the clean name's field names the
+    RIR: RIR_FIELDS), calibrated and raw: the calibrated values equal
+    make_mappers_np of the raw ones, the mean of each distribution's first
+    EVAL_CPU_UTTS raw values within EVAL_BARS of the CPU run's (each
+    value's gap reported); (4) `cli/export_torch`
+    (`export_checks`); (5) P.56 (`asl_checks`); (6) MMSE-LSA
+    (`mmse_checks`).  The CPU references run in one process of their own
+    (EVAL_CPU_REFERENCE), started once the timed eval_reverb run is over.
+    Launch counts are zeroed at the phase's start and read at its end
+    (the phase's own, "launches"); eval_reverb's main run has its own."""
+    t_phase = time.perf_counter()
+    root = f"{tmp}/eval"
+    corpus = f"{root}/corpus"
+    made = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "make_synth_corpus.py"),
+         corpus, "--seed", "1234", "--n-train", str(EVAL_UTTS),
+         "--n-test", str(EVAL_UTTS)], capture_output=True, text=True,
+        timeout=600)
+    if made.returncode != 0:
+        raise AssertionError(f"make_synth_corpus: {made.stderr[-2000:]}")
+    corpus_s = time.perf_counter() - t_phase
+    rirs, rir_paths = {}, []
+    for i, t60 in enumerate(RIR_T60S):
+        path = f"{root}/rir_t60_{t60}.wav"
+        write_wav_pcm16(path, synthetic_rir(t60, seed=60 + i))
+        rirs[f"t60_{t60}"] = read_wav(path)[0]
+        rir_paths.append(path)
+    os.makedirs(f"{root}/rir_dir")
+    for field, t60 in RIR_FIELDS.items():
+        shutil.copy(f"{root}/rir_t60_{t60}.wav",
+                    f"{root}/rir_dir/{field}.wav")
+    ckpt = save_seeded_checkpoint(f"{root}/ckpt", Config(), dev)
+    cudnn = torch.backends.cudnn
+    deterministic, cudnn.deterministic = cudnn.deterministic, True
+    norm_argv = ["--clean", f"{corpus}/Train/Clean", "--noise",
+                 f"{corpus}/Train/Noise", "--enhanced",
+                 f"{corpus}/Train/MultiEnh", "--rir-dir", f"{root}/rir_dir"]
+    ref = None
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        first = sorted(get_filepaths(f"{corpus}/Test/Clean"))[0]
+        fir = fir_checks(dev, {"golden": speech_signals()[0],
+                               "test0": read_wav(first)[0]}, rirs)
+        reverb = eval_reverb_card(reverb_argv(corpus, ckpt, rir_paths,
+                                              EVAL_UTTS, "cuda"))
+        # the CPU references, beside the card's remaining work
+        norm_few = ["--num", str(EVAL_CPU_UTTS), "--out",
+                    f"{root}/norm_cpu", "--raw", "--device", "cpu"]
+        ref = subprocess.Popen(
+            [sys.executable, "-c", EVAL_CPU_REFERENCE, json.dumps(
+                [reverb_argv(corpus, ckpt, rir_paths, EVAL_CPU_UTTS, "cpu"),
+                 norm_argv + norm_few])],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        few = eval_reverb.main(reverb_argv(corpus, ckpt, rir_paths,
+                                           EVAL_CPU_UTTS, "cuda"))
+        norm = collect_norm_card(norm_argv, root)
+        exported = export_checks(dev, root, ckpt)
+        asl = asl_checks(dev)
+        mmse_res = mmse_checks(dev)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        text, _ = ref.communicate(timeout=900)
+    finally:
+        cudnn.deterministic = deterministic
+        if ref is not None and ref.poll() is None:
+            ref.kill()
+            ref.wait()
+    if ref.returncode != 0 or "CPU_REFERENCE " not in text:
+        raise AssertionError(f"the CPU references exited {ref.returncode}:"
+                             f"\n{text[-4000:]}")
+    cpu = json.loads(text.rsplit("CPU_REFERENCE ", 1)[1])
+
+    # (2) eval_reverb: launches of the main run, the card against the CPU
+    la = reverb["launches"]
+    want_launches = {name: 0 for name in la}
+    want_launches["imcra_scan"] = reverb["featurized_batches"]
+    want_launches["linrec"] = EVAL_UTTS * (len(rir_paths) + 1)
+    if la != want_launches or reverb["featurized_batches"] == 0:
+        raise AssertionError(f"eval_reverb launched {la}, expected "
+                             f"{want_launches}")
+    few, cpu_means = ({os.path.basename(k): v for k, v in x.items()}
+                      for x in (few, cpu["eval_reverb"]))
+    vs_cpu = {c: {m: rel_gap(few[c][m], v) for m, v in means.items()}
+              for c, means in cpu_means.items()}
+    reverb.update(first_utts_card=few, first_utts_cpu=cpu_means,
+                  vs_cpu=vs_cpu)
+    shown = {k: reverb[k] for k in ("means", "seconds", "conditions",
+                                    "launches")}
+    print(f"eval_reverb on the card, {EVAL_UTTS} utterances: "
+          f"{json.dumps(shown)}; the first {EVAL_CPU_UTTS} against the "
+          f"CPU, relative: {vs_cpu}; bars {EVAL_BARS}")
+    if not (list(few) == list(cpu_means) and all(
+            v[m] <= EVAL_BARS[m] for v in vs_cpu.values() for m in v)):
+        raise AssertionError(f"eval_reverb card against CPU: {vs_cpu}")
+    if not all(np.isfinite(v) for c in reverb["means"].values()
+               for v in c.values()):
+        raise AssertionError(f"eval_reverb: {reverb['means']}")
+
+    # (3) collect_norm: calibrated = mappers(raw) on the card, raw vs CPU
+    mappers = make_mappers_np()
+    cal, raw = norm["calibrated"], norm["raw"]
+    mapped = all(cal[k] == [float(mappers[k.split("|")[0]](r))
+                            for r in raw[k]] for k in raw)
+    # the bars of eval_reverb's means on each distribution's first values;
+    # each value's own gap is reported: SIIB of a tiled utterance reads an
+    # ill-conditioned KLT (metrics/siib.py), so one value can move 1e-3
+    # between two float64 eigensolvers
+    norm_cpu = {k: rel_gap(float(np.mean(raw[k][:len(v)])),
+                           float(np.mean(v)))
+                for k, v in cpu["collect_norm"].items()}
+    norm_values = {k: max(rel_gap(a, b) for a, b in zip(raw[k], v))
+                   for k, v in cpu["collect_norm"].items()}
+    shapes = {k: len(v) for k, v in raw.items()}
+    norm_res = {"distributions": sorted(raw), "values": shapes,
+                "calibrated_is_mapped_raw": mapped,
+                "first_vs_cpu": norm_cpu,
+                "first_values_vs_cpu": norm_values,
+                "seconds": {k: norm[f"{k}_s"]
+                            for k in ("calibrated", "raw")},
+                "scores_per_s": sum(shapes.values()) / norm["raw_s"],
+                "means": {k: float(np.mean(v)) for k, v in raw.items()}}
+    print(f"collect_norm on the card, {EVAL_UTTS} utterances: {norm_res}; "
+          f"bars {EVAL_BARS}")
+    conds = ("before", "after", "rev_before", "rev_after")
+    if not (mapped and sorted(raw) == sorted(
+            f"{m}|{c}" for m in ("estoi", "haspi", "siib") for c in conds)
+            and set(shapes.values()) == {EVAL_UTTS}
+            and sorted(norm_cpu) == sorted(raw)
+            and all(norm_cpu[k] <= EVAL_BARS[k.split("|")[0]]
+                    for k in norm_cpu)
+            and all(np.isfinite(v).all() for v in raw.values())):
+        raise AssertionError(f"collect_norm: {norm_res}")
+    if not (launches["imcra_scan"] > 0 and launches["linrec"] > 0):
+        raise AssertionError(f"eval phase launches {launches}")
+    res = {"corpus_s": corpus_s, "fir_filter": fir, "eval_reverb": reverb,
+           "collect_norm": norm_res, "export": exported, "asl_p56": asl,
+           "mmse_lsa": mmse_res, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"eval phase: {res['phase_s']:.1f} s")
     return res
 
 
@@ -4759,6 +5518,7 @@ def report_phase(dev, tmp: str) -> dict:
     t_phase = time.perf_counter()
     cudnn = torch.backends.cudnn
     deterministic = cudnn.deterministic
+    n_guards = len(GUARDS)
     corpus, work = f"{tmp}/trainer_small", f"{tmp}/report"
     argv = ["--seeds", str(REPORT_SEED), "--epochs", str(REPORT_EPOCHS),
             "--variants", "b8_f32", "--corpus", corpus,
@@ -4803,7 +5563,10 @@ def report_phase(dev, tmp: str) -> dict:
                                  f"{said.getvalue()[-2000:]}")
     finally:
         cudnn.deterministic = deterministic
+    guarded = guard_summary(guard_records(GUARDS[n_guards:],
+                                          gate="report phase"))
     res = {"seconds": seconds, "launches": launches, "written_bytes": written,
+           "generator_guard": guarded,
            "baseline_rel_to_fresh": baseline, "skipped_recorded_seed": True,
            "s_per_epoch": run["s_per_epoch"], "timing": run["timing"],
            "best": run["best"], "baseline": run["baseline"],
@@ -4843,7 +5606,8 @@ def main() -> None:
     disable_tf32()
 
     if sys.argv[1:2] == ["--fault-hunt"]:
-        print(json.dumps({"fault_hunt": fault_hunt(int(sys.argv[2]))}))
+        print(json.dumps({"fault_hunt": fault_hunt(
+            int(sys.argv[2]), *map(float, sys.argv[3:4]))}))
         print(card)
         return
     if sys.argv[1:2] == ["--sanitize-launches"]:
@@ -4872,11 +5636,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
         inferred = infer_phase(dev, tmp)
         scored = scoring_phase(dev, tmp, inferred)
+        install_generator_guard()   # every Trainer from here on
         trained = trainer_phase(dev, tmp)
         single = trained.pop("_single")
         mixed = mixed_precision_phase(dev, f"{tmp}/trainer_corpus", tmp,
                                       trained["epochs"])
         directed = direct_phase(dev)
+        evaluated = eval_phase(dev, tmp)
         paralleled = parallel_phase(dev, tmp, single)
         reported = report_phase(dev, tmp)
     for rec in records:
@@ -4897,6 +5663,7 @@ def main() -> None:
             a["launches"][rec["name"]]
             for a in paralleled["cli_world_of_one"]["recovery"]["attempts"]]
         rec["report_launches"] = reported["launches"][rec["name"]]
+        rec["eval_launches"] = evaluated["launches"][rec["name"]]
     # linrec's path is scoring (PESQ's gain memory through cli/infer
     # --metrics), linrec_bwd's the direct step (PESQ's gradient)
     records[2]["launches"] = scored["launches"]["linrec"]
@@ -4918,6 +5685,7 @@ def main() -> None:
     print(json.dumps({"trainer": trained}))
     print(json.dumps({"mixed_precision": mixed}))
     print(json.dumps({"direct": directed}))
+    print(json.dumps({"eval": evaluated}))
     print(json.dumps({"parallel": paralleled}))
     print(json.dumps({"report": reported}))
     print(json.dumps({"kernels": records}))

@@ -238,3 +238,39 @@ def test_chip_smoke_fails_without_cuda():
                          timeout=120, env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_guard_imports_without_jax(tmp_path):
+    """The guarded CLI runs of chip_smoke.py import the script itself for
+    its generator guard: with JAX and the reference package blocked it
+    imports, and its hooks see a Trainer's generator through epoch 1
+    (here through __init__ alone: no corpus is read) and undo."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
+        "'nelegan_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import chip_smoke as cs\n"
+        "from nelegan_tpu_torch.train import loop\n"
+        "init = loop.Trainer.__init__\n"
+        "undo = cs.install_generator_guard()\n"
+        "assert loop.Trainer.__init__ is not init\n"
+        "undo()\n"
+        "assert loop.Trainer.__init__ is init and cs.GUARDS == []\n"
+        "g = cs.GeneratorGuard('t')\n"
+        "m = cs.Generator(hidden=8, n_blocks=3)\n"
+        "g.mark('a', m)\n"
+        "g.mark('b', m)\n"
+        "assert g.ok, g.record()\n"
+        "import torch\n"
+        "with torch.no_grad():\n"
+        "    m.fc1.weight.view(-1)[3:6] += 1.0\n"
+        "g.mark('c', m)\n"
+        "v = g.record()['violation']\n"
+        "assert v['point'] == 'c' and v['tensor'] == 'fc1.weight', v\n"
+        "assert v['changed'] == 3 and v['ranges'] == [[3, 5]], v\n"
+        "print('guarded')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "guarded" in out.stdout

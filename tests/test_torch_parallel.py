@@ -96,6 +96,26 @@ def _tensors(state) -> dict:
     return out
 
 
+def _raw(state) -> dict:
+    """Every tensor of a TrainState by name as (dtype, bytes) and the step
+    counters: what `replicate` must leave bit for bit."""
+    sd = state.state_dict()
+    out = {f"{m}.{k}": v for m in ("gen", "d", "dq") for k, v in sd[m].items()}
+    for m in ("gen_opt", "d_opt", "dq_opt"):
+        for i, st in sd[m]["state"].items():
+            for k, v in st.items():
+                out[f"{m}.{i}.{k}"] = v
+    out = {k: (str(v.dtype), v.detach().contiguous().reshape(-1)
+               .view(torch.uint8).numpy().tobytes()) for k, v in out.items()}
+    out["steps"] = (state.step_g, state.step_d)
+    return out
+
+
+def _changed(before: dict, after: dict) -> list:
+    return sorted(k for k in before.keys() | after.keys()
+                  if before.get(k) != after.get(k))
+
+
 # ------------------------------------------------------------ the ranks
 def _rank_mesh(mesh) -> dict:
     """shard_batch / all_gather_rows round trip (a column-major leaf, an
@@ -113,6 +133,7 @@ def _rank_mesh(mesh) -> dict:
     own = {"w": torch.full((3,), float(r)), "n": r}
     rep = replicate(mesh, own)
     state = gan.init_train_state(STEP_CFG, 5, "cpu")
+    drawn = _raw(state)                 # the same draw on both ranks
     if r == 1:
         with torch.no_grad():
             state.gen.fc1.weight.add_(1.0)
@@ -124,6 +145,7 @@ def _rank_mesh(mesh) -> dict:
         diverged = str(e)
     replicate(mesh, state)
     assert_replicated(mesh, state)
+    replicated = _changed(drawn, _raw(state))
     try:
         make_mesh(model_parallel=3, devices=["cpu"] * mesh.world)
         indivisible = None
@@ -133,6 +155,7 @@ def _rank_mesh(mesh) -> dict:
     return {"rows": mine["x"], "back": back, "col_strides": (
         back["col"].stride(), col.stride()), "sums": sums, "rep": rep,
         "diverged": diverged, "state_step_g": state.step_g,
+        "replicated_vs_draw": replicated, "tensors": len(drawn),
         "digest": replica_digest(state), "indivisible": indivisible,
         "tp_coords": (tp.data_size, tp.data_rank, tp.model_rank),
         "tp_rows": shard_batch(tp, x),
@@ -179,6 +202,11 @@ def _rank_steps(mesh, sd, inputs, model_parallel=1) -> dict:
         np.array([True, True, False]), STEP_CFG, mesh=mesh)
     losses += lvals.reshape(-1).tolist()
     assert_replicated(mesh, state)
+    # a replicated state (Adam moments and counts, u and v, shards) goes
+    # through replicate unchanged, bit for bit
+    before = _raw(state)
+    replicate(mesh, state)
+    again = _changed(before, _raw(state))
     bent = copy.deepcopy(state)
     if mesh.rank == 1:
         bent.d.layers[0].weight_u.add_(1.0)
@@ -191,6 +219,7 @@ def _rank_steps(mesh, sd, inputs, model_parallel=1) -> dict:
             "final": _tensors(gather_params(mesh, state)),
             "all_reduces": mesh.count("all_reduce:"),
             "tp_collectives": mesh.count("tp:"), "diverged": diverged,
+            "replicate_changed": again, "tensors": len(before),
             "d_weight_shape": tuple(state.d.layers[1].weight_orig.shape)}
 
 
@@ -507,6 +536,25 @@ def test_mesh_collectives(world):
         np.testing.assert_array_equal(r["tp_rows"], x)
         np.testing.assert_array_equal(r["tp_back"], x)
     np.testing.assert_array_equal(ranks[0]["digest"], ranks[1]["digest"])
+
+
+def test_replicate_leaves_every_tensor_bit_equal(world):
+    """`replicate` over gloo: a fresh state whose copy on rank 1 diverged
+    comes back as the seed's draw on both ranks, and a trained state
+    (Adam moments and step counts, u and v; sharded at model axis 2)
+    comes back unchanged; in a world of this process alone, a full-width
+    state comes back unchanged; every tensor compared by its bytes."""
+    with launch.world_of_one("gloo", "cpu") as mesh:
+        state = gan.init_train_state(Config(), 3, "cpu")
+        before = _raw(state)
+        replicate(mesh, state)
+        assert _changed(before, _raw(state)) == []
+    for r in world[0]:
+        assert r["mesh"]["replicated_vs_draw"] == []
+        assert r["mesh"]["tensors"] > 20
+        for run in ("steps", "tp_steps"):
+            assert r[run]["replicate_changed"] == []
+            assert r[run]["tensors"] > r["mesh"]["tensors"]
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,8 @@ from nelegan_tpu.train.loop import TrainPaths as JaxTrainPaths
 from nelegan_tpu_torch.config import Config, ModelConfig, TrainConfig
 from nelegan_tpu_torch import metrics as port_metrics
 from nelegan_tpu_torch.models.convert import train_state_from_jax
+from nelegan_tpu_torch.train import gan
+from nelegan_tpu_torch.train.checkpoint import load_checkpoint
 from nelegan_tpu_torch.train.loop import (Trainer, TrainPaths,
                                           generator_from_jax_key)
 from nelegan_tpu_torch.train.resilience import run_with_recovery
@@ -325,6 +327,29 @@ def test_recovery_bit_for_bit(port_run, jax_run, corpus, tmp_path):
                           backoff_seconds=0.01)
     assert attempts["n"] == 2
     _same_run(t, ref, tmp_path, run)
+
+
+def test_generator_unchanged_through_epoch_1(port_run, jax_run):
+    """Epoch 1 takes no G step: the module run's epoch-1 checkpoint holds
+    the generator it started from bit for bit, G's Adam moments at zero
+    and step 0, while D moved."""
+    _, _, after_1 = port_run
+    # the file, not `latest`: the exact-resume test runs epoch 2 there
+    state, _, epoch, _ = load_checkpoint(
+        str(after_1 / "chkpt" / "chkpt_1.ptstate"),
+        gan.init_train_state(CFG, 9, "cpu"))
+    origin = train_state_from_jax(jax_run["init"], CFG, "cpu")
+    assert epoch == 1 and state.step_g == 0 and state.step_d > 0
+    got, want = state.gen.state_dict(), origin.gen.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(
+            got[k].view(torch.uint8), v.view(torch.uint8)), k
+    for st in state.gen_opt.state_dict()["state"].values():
+        assert float(st["step"]) == 0 and not st["exp_avg"].any() \
+            and not st["exp_avg_sq"].any()
+    assert not all(torch.equal(p, q) for p, q in zip(
+        state.d.parameters(), origin.d.parameters()))
 
 
 def test_pools_serve_every_epoch(port_run):
