@@ -6,7 +6,7 @@
 Needs one CUDA GPU (sm_90a: H100) and `nvcc`; exits non-zero without them,
 and in a directory that holds this file and nothing else of the repository.
 `python3 chip_smoke.py --fault-hunt N [SECONDS]` runs only the hunt for
-the open fault of ROADMAP section 3 (see `fault_hunt`); `python3 chip_smoke.py
+the fault of ROADMAP section 3 (see `fault_hunt`); `python3 chip_smoke.py
 --sanitize-launches` only launches the trainer path's kernels once each at
 its shapes, for `compute-sanitizer` to watch (see `sanitize_launches`).
 Phases, in order; any failure raises.  From the trainer phase on, every
@@ -15,7 +15,7 @@ run, is under the generator guard (`install_generator_guard`): its
 generator must leave epoch 1 bit-equal to its draw, checked after
 `init_train_state`, after `Trainer.__init__`, after each phase of epoch 1
 and at its end; a violation names the point, the tensor and the changed
-elements, and fails every run but the side-by-side pair, which reports:
+elements, and fails the run:
 
   1. the card, as `nvidia-smi --query-gpu=name,power.limit` prints it;
   2. build the kernels from nelegan_tpu_torch/csrc (one nvcc per source,
@@ -156,14 +156,19 @@ elements, and fails every run but the side-by-side pair, which reports:
      profile (busy share, top device operations); SIIB's eigh time against
      its warm time;
   9. trainer phase (`train/loop.py`, `train/resilience.py`), float32, TF32
-     off, deterministic cuDNN, over PCM16 corpora written under the
-     temporary directory: at full width (Config(), batch 8; 32 training
-     utterances with a pre-enhanced copy at half gain, 8 test ones, in the
-     three infer buckets; 16 sampled and 8 validated an epoch; all five
-     metrics) three epochs, launch counts zeroed just before each epoch and
-     read just after (IMCRA once per featurized batch, linrec once per PESQ
-     chunk, the cascade and linrec_bwd never), every scoring lookup of the
-     enhanced rows the loop parked in the pool a hit; exact resume: a second
+     off, deterministic cuDNN; first the initial state's draw on this
+     host's CPU (`draw_invariance`: init_train_state(Config(), seed 0) in
+     fresh processes under ATEN_CPU_CAPABILITY=default at one thread and
+     at the host's own capability at all threads, every tensor bit-equal;
+     the digest printed beside the CPU test's); then over PCM16 corpora
+     written under the temporary directory: at full width (Config(),
+     batch 8; 32 training utterances with a pre-enhanced copy at half
+     gain, 8 test ones, in the three infer buckets; 16 sampled and 8
+     validated an epoch; all five metrics) three epochs, launch counts
+     zeroed just before each epoch and read just after (IMCRA once per
+     featurized batch, linrec once per PESQ chunk, the cascade and
+     linrec_bwd never), every scoring lookup of the enhanced rows the
+     loop parked in the pool a hit; exact resume: a second
      run of epochs 1-2, then a fresh Trainer resumes from a copy of its
      checkpoints and runs epoch 3, bit for bit against that run with its
      caches emptied before epoch 3 (state with Adam moments and u/v,
@@ -176,10 +181,13 @@ elements, and fails every run but the side-by-side pair, which reports:
      in epoch 2 against a straight run emptied before epoch 2, bit for bit;
      the card against the CPU from the same initial state, the card's D
      trained on the CPU's scores (names and replay paths identical, the
-     card's own scores within SCORE_BARS, G's epoch loss within
+     card's own scores within SCORE_BARS of the CPU's float64 scores of
+     the same files, as the bars are defined; G's epoch loss within
      F32_LOSS_BAR, the D heads' epoch losses and the state within
-     F32_UPDATE_BAR), beside the CPU against itself from an initial state
-     one float32 ulp away.  At the paper's epoch size (300 sampled of 300
+     F32_UPDATE_BAR; the card's scores against the CPU run's scores of
+     its own files within ROUNDOFF_MULTIPLE times the same gap of the CPU
+     against itself from an initial state one float32 ulp away, or within
+     SCORE_BARS).  At the paper's epoch size (300 sampled of 300
      training utterances, 480 validated), two epochs, cold and warm, with
      their launch counts.  Per epoch: phase seconds, G and D steps, pool
      hits, misses and bytes, training utterances/s;
@@ -229,10 +237,12 @@ elements, and fails every run but the side-by-side pair, which reports:
      torchrun world of one over NCCL against the CLI without it, one after
      the other (one epoch of the small corpus; log.txt and the checkpoint
      bit for bit), then two plain CLI runs side by side under torch's
-     deterministic-algorithms check (reported: the open fault of ROADMAP
-     section 3); the recovery of a torchrun world: the CLI with
-     `--data-parallel --max-retries 1` under `--max-restarts 1`, a world
-     of one over NCCL, RECOVERY_EPOCHS epochs of the small corpus, its
+     deterministic-algorithms check, their initial states, checkpoints
+     and generators through epoch 1 bit-equal (ROADMAP section 3's fault,
+     fixed: the host's draw of the initial state); the recovery of a
+     torchrun world: the CLI with `--data-parallel --max-retries 1`
+     under `--max-restarts 1`, a world of one over NCCL, RECOVERY_EPOCHS
+     epochs of the small corpus, its
      first attempt failing at the start of epoch FAULT_EPOCH once
      `latest` names the epoch before, against the world of one above
      resumed by hand (`--resume`) to RECOVERY_EPOCHS: log.txt and the
@@ -244,7 +254,10 @@ elements, and fails every run but the side-by-side pair, which reports:
      full-width run for two epochs, their D on the single run's scores,
      against that phase's straight run of the same epochs: the ranks'
      states bit-equal after every epoch, names and replay paths equal,
-     epoch-1 PCM16 within 1 LSB, their own scores within SCORE_BARS, G's
+     epoch-1 PCM16 within 1 LSB, rank 0's scores within SCORE_BARS of
+     the CPU's float64 scores of the same files and within ROUNDOFF_MULTIPLE
+     times (or SCORE_BARS) the gap of a single run on the card one ulp
+     away from the single run's scores, G's
      epoch loss within F32_LOSS_BAR, the D heads' and the state within
      F32_UPDATE_BAR, epoch 2's pool misses at most the single run's, one
      all-reduce per optimizer step, IMCRA and linrec once per featurized
@@ -290,7 +303,9 @@ import glob
 import hashlib
 import io
 import itertools
+import inspect
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -421,6 +436,15 @@ MIDDLE_EAR_BAR = 1e-5    # the scan against the spectral fold, relative
 # 8.5e-6 to 9.7e-6 and 9.4e-5 to 3.8e-4.
 SCORE_BARS = {"estoi": 5e-6, "haspi": 5e-5, "siib": 5e-4, "pesq": 2e-6,
               "visqol": 1e-5}
+# SCORE_BARS hold a score against the CPU's float64 score of the same file.
+# Two training runs' scores of their own files also differ by each run's
+# float32 round-off carried through its epochs, which a run one float32
+# ulp away from the same initial state measures (the control, in the same
+# call): such a gap is held to the larger of SCORE_BARS and this many times
+# the control's.  The card's gaps read 1.07 and 1.37 times the control's
+# (PESQ, ESTOI, on an H100, PERF.md); a fault (a score given to another file, a
+# wrong kernel) moves scores by orders of magnitude more.
+ROUNDOFF_MULTIPLE = 4
 HASPI_F32_BAR = 2e-3     # the reference package's own (COMPONENTS.md:38)
 EAR_GOLDEN_BAR = 5e-5    # float32 ear model on the card against the golden
 CACHE_BAR = 1e-5         # a clean-cache hit against the pair path
@@ -3076,6 +3100,50 @@ class Tally:
             setattr(module, name, fn)
 
 
+def cross_run_bars(control: dict) -> dict:
+    """Each metric's bar for a gap between two runs' scores of their own
+    files, given the control's gap (ROUNDOFF_MULTIPLE)."""
+    return {m: max(SCORE_BARS[m], ROUNDOFF_MULTIPLE * v)
+            for m, v in control.items()}
+
+
+def score_gap(got: dict, want: dict, names) -> dict:
+    """Each metric's largest gap of `got`'s score from `want`'s, relative
+    (to 1 below 1), over the files of `want` that `got` scored."""
+    return {m: max(abs(got[k][m] - v[m]) / max(abs(v[m]), 1.0)
+                   for k, v in want.items() if k in got)
+            for m in names}
+
+
+def one_ulp_up(trainer: Trainer) -> None:
+    """Every parameter of `trainer`'s G, D and D_Qua one float32 ulp up
+    (the round-off control), its generator guard rebased on it."""
+    with torch.no_grad():
+        for p in itertools.chain(trainer.state.gen.parameters(),
+                                 trainer.state.d.parameters(),
+                                 trainer.state.dq.parameters()):
+            p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    trainer.gen_guard.rebase("one float32 ulp up (the control)",
+                             trainer.state.gen)
+
+
+def cpu_f64_scores(index, enhanced_paths, norm: bool, names,
+                   fs: int) -> list:
+    """The files' scores on the CPU in float64, as `Trainer._score_files`
+    pairs them (each enhanced file with its clean and noise files)."""
+    def read64(path):
+        return read_wav(path)[0].astype(np.float64)
+    cleans, noises, enhs = [], [], []
+    for p in enhanced_paths:
+        base = os.path.basename(p)
+        name = base.split("@")[0] + ".wav" if "@" in base else base
+        cleans.append(read64(index.clean_path_for(name)))
+        noises.append(read64(os.path.join(index.noise_dir, name)))
+        enhs.append(read64(p))
+    return metrics.score_corpus(cleans, noises, enhs, fs, norm=norm,
+                                metrics=names, device="cpu")
+
+
 class SmokeTrainer(Trainer):
     """The loop as a user runs it, with what the trainer phase reads off
     it: per epoch the kernels' launches (counted from 0 just before the
@@ -3099,6 +3167,8 @@ class SmokeTrainer(Trainer):
         # computed)
         self.scored = {}
         self.targets = targets
+        # a dict: the CPU's float64 scores of the files this run scores
+        self.rescored = None
         if self.tally is not None:
             self.tally.watch_pool(self._clean_side_cache)
 
@@ -3107,6 +3177,14 @@ class SmokeTrainer(Trainer):
         root = run_roots(self)[0]
         keys = [(p.replace(root, "/"), norm) for p in enhanced_paths]
         self.scored.update(zip(keys, out))
+        if self.rescored is not None:
+            # the rescoring runs no kernel: its calls are not the loop's
+            calls = self.tally and collections.Counter(self.tally.calls)
+            self.rescored.update(zip(keys, cpu_f64_scores(
+                index, enhanced_paths, norm, metrics, self.cfg.train.fs)))
+            if calls is not None:
+                self.tally.calls.clear()
+                self.tally.calls.update(calls)
         if self.targets is not None:
             out = [dict(self.targets[k]) for k in keys]
         return out
@@ -3491,6 +3569,77 @@ def trained_config() -> Config:
         gan_epochs=TRAINER_EPOCHS))
 
 
+# a child that draws init_train_state(Config(), seed 0) on the CPU at
+# argv[1] threads (0: torch's default) and prints one JSON line: its ATen
+# CPU capability, threads, each tensor's digest and the draw's seconds
+DRAW_CHILD = """
+import hashlib, json, sys, time, torch
+from nelegan_tpu_torch.config import Config
+from nelegan_tpu_torch.train.gan import init_train_state
+if int(sys.argv[1]):
+    torch.set_num_threads(int(sys.argv[1]))
+init_train_state(Config(), 0, device="cpu")
+times = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    s = init_train_state(Config(), 0, device="cpu")
+    times.append(time.perf_counter() - t0)
+print(json.dumps({
+    "capability": torch.backends.cpu.get_cpu_capability(),
+    "threads": torch.get_num_threads(), "torch": torch.__version__,
+    "draw_s": sorted(times)[1],
+    "tensors": {f"{m}.{k}": hashlib.sha256(
+        v.contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+        for m in ("gen", "d", "dq")
+        for k, v in getattr(s, m).state_dict().items()}}))
+"""
+# the digest of init_train_state(Config(), seed 0) on the CPU that
+# tests/test_torch_init_draw.py computes with torch 2.13.0+cpu on an x86
+# host (AVX512 and DEFAULT capabilities alike)
+CPU_TEST_DRAW_DIGEST = "c565482213f0ad49"
+
+
+def draw_digest(tensors: dict) -> str:
+    """One digest of a state's per-tensor digests, by name."""
+    return hashlib.sha256("".join(f"{k}:{v};" for k, v in sorted(
+        tensors.items())).encode()).hexdigest()[:16]
+
+
+def draw_invariance(root: Path = REPO) -> dict:
+    """init_train_state(Config(), seed 0) drawn on this host's CPU in two
+    fresh processes of the package under `root`: under
+    ATEN_CPU_CAPABILITY=default at one thread, and at the host's own
+    capability at all its threads.  Each child's capability, threads and
+    draw time (the median of three warm draws); the tensors that differ
+    (gated by the caller); the digest beside the CPU test's."""
+    kids = {}
+    for name, cap, threads in (("default_1_thread", "default", 1),
+                               ("host_all_threads", None, 0)):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("ATEN_CPU_CAPABILITY", "OMP_NUM_THREADS")}
+        if cap:
+            env["ATEN_CPU_CAPABILITY"] = cap
+        env["PYTHONPATH"] = os.pathsep.join(filter(None, (
+            str(root), env.get("PYTHONPATH"))))
+        out = subprocess.run([sys.executable, "-c", DRAW_CHILD, str(threads)],
+                             cwd=root, env=env, capture_output=True,
+                             text=True, timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"draw child ({name}) exited "
+                                 f"{out.returncode}:\n{out.stderr[-4000:]}")
+        kids[name] = json.loads(out.stdout.strip().splitlines()[-1])
+    a, b = (kids[k]["tensors"] for k in ("default_1_thread",
+                                          "host_all_threads"))
+    differ = sorted(k for k in a if a[k] != b.get(k))
+    return {"children": {k: {x: v[x] for x in ("capability", "threads",
+                                                "torch", "draw_s")}
+                         for k, v in kids.items()},
+            "tensors": len(a), "tensors_differ": len(differ),
+            "first_differ": differ[:6],
+            "digest": {k: draw_digest(v["tensors"]) for k, v in kids.items()},
+            "cpu_test_digest": CPU_TEST_DRAW_DIGEST}
+
+
 def trainer_phase(dev, tmp: str) -> dict:
     """The training loop (`train/loop.py`) on the card; every check raises.
     Full width (Config(), batch 8, 16 sampled and 8 validation utterances
@@ -3503,8 +3652,13 @@ def trainer_phase(dev, tmp: str) -> dict:
     PESQ): recovery from a fault in epoch 2 against a straight run emptied
     before epoch 2; the card against the CPU.  The paper's epoch size
     (PAPER_SAMPLED sampled, PAPER_VALID validated) at full width, cold and
-    warm."""
+    warm.  First `draw_invariance`, gated."""
     t_phase = time.perf_counter()
+    drawn = draw_invariance()
+    print(f"trainer phase, the initial state's draw on the host: {drawn}")
+    if drawn["tensors_differ"]:
+        raise AssertionError(f"the initial state's draw depends on the CPU "
+                             f"path: {drawn}")
     cudnn = torch.backends.cudnn
     deterministic = cudnn.deterministic
     cudnn.deterministic = True
@@ -3516,6 +3670,7 @@ def trainer_phase(dev, tmp: str) -> dict:
         tally.restore()
         SmokeTrainer.tally = None
         cudnn.deterministic = deterministic
+    res["draw_invariance"] = drawn
     res["generator_guard"] = guard_summary(guard_records(
         GUARDS[n_guards:], gate="trainer phase"))
     print(f"trainer phase, the generator through epoch 1: "
@@ -3666,17 +3821,13 @@ def trainer_checks(dev, tmp: str) -> dict:
     cpu_s = time.perf_counter() - t0
     base = small_trainer("card", c=pcfg)
     base.targets = cpu.scored
+    base.rescored = {}
     base.run(2)
     check_epoch_launches(base, "card vs CPU")
     # the CPU against itself from an initial state one float32 ulp up in
     # every parameter: how far float32 round-off alone carries two epochs
     ulp = small_trainer("cpu_ulp", c=pcfg, device="cpu")
-    with torch.no_grad():
-        for p in itertools.chain(ulp.state.gen.parameters(),
-                                 ulp.state.d.parameters(),
-                                 ulp.state.dq.parameters()):
-            p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
-    ulp.gen_guard.rebase("one float32 ulp up (the control)", ulp.state.gen)
+    one_ulp_up(ulp)
     ulp.run(2)
     cpu_origin = gan.init_train_state(pcfg, pcfg.train.seed, "cpu")
     if ([(k, sorted(v)) for k, v in sorted(base.scored.items())]
@@ -3684,9 +3835,11 @@ def trainer_checks(dev, tmp: str) -> dict:
             or replay_rows(base.replay.entries, run_roots(base))
             != replay_rows(cpu.replay.entries, run_roots(cpu))):
         raise AssertionError("trainer card vs CPU: files or replay differ")
-    card_err = {m: max(abs(base.scored[k][m] - v[m]) / max(abs(v[m]), 1.0)
-                       for k, v in cpu.scored.items())
-                for m in TRAINER_SMALL_METRICS}
+
+    # the card's scores against the CPU's float64 scores of the same files
+    # (SCORE_BARS), and against the CPU run's scores of its own files
+    # (cross_run_bars of the CPU against itself one ulp away)
+    card_err = score_gap(base.scored, base.rescored, TRAINER_SMALL_METRICS)
 
     def drift(run):
         """`run` against the CPU run: G's epoch loss and each D head's
@@ -3714,20 +3867,29 @@ def trainer_checks(dev, tmp: str) -> dict:
                                   "d": list(zip(r["d_loss"], q["d_loss"]))}
                                  for r, q in zip(run.epochs, cpu.epochs)],
                 "state": state_errors(run.state, cpu.state, cpu_origin)}
-    vs_cpu = dict(drift(base), scores=card_err, cpu_seconds=cpu_s)
-    ulp_pair = drift(ulp)
+    vs_cpu = dict(drift(base), scores=card_err,
+                  scores_of_each_runs_files=score_gap(
+                      base.scored, cpu.scored, TRAINER_SMALL_METRICS),
+                  cpu_seconds=cpu_s)
+    ulp_pair = dict(drift(ulp), scores_of_each_runs_files=score_gap(
+        ulp.scored, cpu.scored, TRAINER_SMALL_METRICS))
     ulp_pair.pop("epoch_losses")
+    cross_bars = cross_run_bars(ulp_pair["scores_of_each_runs_files"])
     print(f"trainer, card against CPU (small config, 2 epochs, same initial "
           f"state, the card's D on the CPU's scores): {vs_cpu}; the CPU "
-          f"against itself one ulp away: {ulp_pair}; bars {SCORE_BARS}, "
+          f"against itself one ulp away: {ulp_pair}; bars {SCORE_BARS} "
+          f"(scores), {cross_bars} (scores_of_each_runs_files), "
           f"F32_LOSS_BAR {F32_LOSS_BAR} (G), F32_UPDATE_BAR {F32_UPDATE_BAR}"
           f" (D losses, state)")
     vs_cpu["cpu_one_ulp_away"] = ulp_pair
+    vs_cpu["cross_run_bars"] = cross_bars
     # G's epoch loss is held to the one-step bar; a D loss, taken after up
     # to 30 D steps and one G epoch, is a function of the stepped state
     # and is held to the bar of the state's update (one ulp of initial
     # state already moves it past F32_LOSS_BAR on the CPU alone)
     if not (all(card_err[m] < SCORE_BARS[m] for m in card_err)
+            and all(vs_cpu["scores_of_each_runs_files"][m] <= cross_bars[m]
+                    for m in cross_bars)
             and vs_cpu["g_loss_rel"] <= F32_LOSS_BAR
             and vs_cpu["d_epoch_loss_rel"] <= F32_UPDATE_BAR
             and vs_cpu["d_step_loss_rel"] <= F32_UPDATE_BAR
@@ -4350,11 +4512,13 @@ def step_collective_ms(rec: dict) -> dict:
 
 
 # the CLI with torch's check for operations that have no deterministic
-# implementation on, warning and not raising: argv as the CLI's own
+# implementation on, warning and not raising, its Trainer's initial state
+# kept in the run's init.pt: argv as the CLI's own
 DETERMINISM_PROBE = (
     "import os, runpy, torch; "
-    "from chip_smoke import install_generator_guard; "
+    "from chip_smoke import install_generator_guard, keep_initial_state; "
     "install_generator_guard(os.environ['NELE_GUARD_FILE']); "
+    "keep_initial_state(os.path.dirname(os.environ['NELE_GUARD_FILE'])); "
     "torch.use_deterministic_algorithms(True, warn_only=True); "
     "runpy.run_module('nelegan_tpu_torch.cli.train', run_name='__main__')")
 
@@ -4373,11 +4537,12 @@ def cli_world_of_one(tmp: str, corpus: str, device: str = "cuda") -> dict:
     width) on `device`: log.txt, the checkpoint's state, key, replay and
     history bit for bit.  A world of one trains single-device, as the
     reference package does on one device: no collective runs in it.
-    Then the open fault (ROADMAP section 3): run side by side, two such
-    runs once differed in their state.  Two runs of the plain CLI side by
-    side under torch's deterministic-algorithms check (warn only): whether
-    their checkpoints agree bit for bit, and the operations torch names as
-    having no deterministic implementation (reported, not gated).  Last,
+    Then the fault of ROADMAP section 3 (side by side, such runs once
+    differed, from the host's draw of the initial state): two runs of the
+    plain CLI side by side under torch's deterministic-algorithms check
+    (warn only), gated bit for bit (`cli_side_by_side`), with the
+    operations torch names as having no deterministic implementation
+    (reported).  Last,
     the recovery of a world (`cli_world_recovery`), against the world of
     one's run resumed by hand."""
     def args(run, epochs=1):
@@ -4547,7 +4712,9 @@ def cli_world_recovery(tmp: str, args, by_hand: str, guarded: Path) -> dict:
 
 
 def cli_side_by_side(tmp: str, args) -> dict:
-    """Two plain cli/train runs at once under DETERMINISM_PROBE."""
+    """Two plain cli/train runs at once under DETERMINISM_PROBE, gated:
+    their initial states (init.pt), checkpoints' state, key, replay and
+    history bit-equal, and neither generator changed through epoch 1."""
     runs = [f"{tmp}/cli_pair{i}" for i in (0, 1)]
     t0 = time.perf_counter()
     procs = []
@@ -4578,13 +4745,20 @@ def cli_side_by_side(tmp: str, args) -> dict:
                     for o in outs for ln in o.splitlines()
                     if "UserWarning:" in ln and "determinis" in ln})
     (sa, ka, _, ra, xa), (sb, kb, _, rb, xb) = map(cli_checkpoint, runs)
-    # reported, not gated, as the rest of the pair
     guards = guard_summary(guard_records(
-        [r for run in runs for r in read_guard(run)]))
-    return {"state": states_equal(sa, sb), "generator_guard": guards,
-            "key": torch.equal(ka.get_state(), kb.get_state()),
-            "replay": ra.replace(runs[0], "") == rb.replace(runs[1], ""),
-            "history": xa["history"] == xb["history"],
+        [r for run in runs for r in read_guard(run)],
+        gate="cli/train side by side"))
+    init, where = init_diffs(*runs)
+    res = {"init": not init, "state": states_equal(sa, sb),
+           "key": torch.equal(ka.get_state(), kb.get_state()),
+           "replay": ra.replace(runs[0], "") == rb.replace(runs[1], ""),
+           "history": xa["history"] == xb["history"]}
+    print(f"cli/train side by side: {res}, init {init[:6]} {where}",
+          flush=True)
+    if not all(res.values()):
+        raise AssertionError(f"cli/train side by side: the pair differs: "
+                             f"{res}; initial tensors {init[:6]} {where}")
+    return {**res, "generator_guard": guards,
             "nondeterministic_ops": named, "seconds": seconds}
 
 
@@ -4604,43 +4778,138 @@ def nccl_refusal(dev) -> dict:
 
 
 # ------------------------------------------------------------ fault hunt
-# The open fault of ROADMAP section 3: a CLI run's bits once changed while
-# another process shared the card.  `python3 chip_smoke.py --fault-hunt N`
-# runs the small corpus's CLI (cli_world_of_one's arguments) alone twice,
+# The fault of ROADMAP section 3: a CLI run's bits once changed while
+# another process shared the card (one half of its gen.fc1.weight came out
+# of torch's erfinv_, split over two threads, up to 1e-5 off; the draw is
+# now float64 with no transcendental function in a threaded kernel:
+# `models/draw.py`).  `python3 chip_smoke.py --fault-hunt N` runs the
+# small corpus's CLI (cli_world_of_one's arguments) alone twice,
 # beside a ballast process that holds all but a little of the card's
 # memory, beside one that keeps the card busy, and N times in the failing
 # form: a torchrun world of one over NCCL, the plain CLI and the NCCL probe
 # at once.  Every run is held against the first lone run.
 # the CLI as a script (torchrun runs a file or a module): it keeps the
-# Trainer's initial state (init.pt), and at exit writes record.json (the
-# process's threads, cuDNN flags, peak reserved bytes, the environment
-# variables that steer torch, CUDA and NCCL) into NELE_HUNT_DIR
+# Trainer's initial state (init.pt) and fc1's re-draw, and at exit writes
+# record.json (the process's threads, ATen CPU capability, thread pools,
+# CPU affinity, cuDNN flags, peak reserved bytes, the re-draw, the
+# environment variables that steer ATen, torch, CUDA and NCCL) into
+# NELE_HUNT_DIR
 HUNT_CLI = """
 import atexit, json, os, runpy, torch
-from chip_smoke import install_generator_guard
-from nelegan_tpu_torch.train import loop
+from chip_smoke import install_generator_guard, keep_initial_state
 run = os.environ["NELE_HUNT_DIR"]
 install_generator_guard(os.path.join(run, "generator_guard.json"))
-init = loop.Trainer.__init__
-def kept_init(self, *args, **kw):
-    init(self, *args, **kw)
-    torch.save({k: {n: t.detach().cpu() for n, t in getattr(
-        self.state, k).state_dict().items()} for k in ("gen", "d", "dq")},
-        os.path.join(run, "init.pt"))
-loop.Trainer.__init__ = kept_init
+redrawn = keep_initial_state(run, redraw=True)
 def record():
     with open(os.path.join(run, "record.json"), "w") as f:
         json.dump({"threads": torch.get_num_threads(),
+                   "capability": torch.backends.cpu.get_cpu_capability(),
+                   "parallel_info": torch.__config__.parallel_info(),
+                   "affinity": sorted(os.sched_getaffinity(0)),
+                   "torch": torch.__version__, "redraw_fc1": redrawn,
                    "cudnn": [torch.backends.cudnn.deterministic,
                              torch.backends.cudnn.benchmark,
                              torch.backends.cudnn.allow_tf32],
                    "peak_reserved": torch.cuda.max_memory_reserved(),
                    "env": {k: v for k, v in os.environ.items() if k.startswith(
                        ("OMP", "MKL", "CUDA", "NCCL", "TORCH", "CUBLAS",
-                        "CUDNN", "PYTORCH"))}}, f)
+                        "CUDNN", "PYTORCH", "ATEN"))}}, f)
 atexit.register(record)
 runpy.run_module("nelegan_tpu_torch.cli.train", run_name="__main__")
 """
+
+
+def keep_initial_state(run: str, redraw: bool = False) -> dict:
+    """From now on every Trainer saves its initial state (G, D and D_Qua
+    state dicts on the host) to `run`/init.pt right after its __init__;
+    with `redraw`, the returned dict receives `redraw_fc1` of it."""
+    init, redrawn = Trainer.__init__, {}
+
+    def kept_init(self, *args, **kw):
+        init(self, *args, **kw)
+        torch.save({k: {n: t.detach().cpu() for n, t in getattr(
+            self.state, k).state_dict().items()} for k in ("gen", "d", "dq")},
+            os.path.join(run, "init.pt"))
+        if redraw:
+            redrawn.update(redraw_fc1(self.state.gen, self.cfg))
+    Trainer.__init__ = kept_init
+    return redrawn
+
+
+def init_diffs(a: str, b: str) -> tuple:
+    """Two runs' init.pt: (the tensors that differ, as `tensor_diffs`;
+    where the elements of the first two differ)."""
+    ia, ib = ({f"{m}.{k}": v for m in x for k, v in x[m].items()}
+              for x in (torch.load(f"{r}/init.pt", weights_only=True)
+                        for r in (a, b)))
+    init = tensor_diffs(ia, ib)
+    # a half, a run, or all; one sign, a range of values, some rows
+    return init, {k: {**changed_elements(ia[k].reshape(-1),
+                                         ib[k].reshape(-1)),
+                      **element_pattern(ia[k], ib[k])}
+                  for k, *_ in init[:2]}
+
+
+def bytes_digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of a host tensor's bytes."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def redraw_fc1(gen: Generator, cfg: Config) -> dict:
+    """`gen.fc1.weight` drawn again for `cfg`'s seed, in two forms.
+    "float32", the draw before it moved to float64, step by step from a
+    fresh torch.Generator that first draws the conv weights as
+    `Generator.reset_parameters` then did: torch's `xavier_uniform_` on
+    float32 convs, then the inverse-CDF truncated normal on a float32
+    tensor (`uniform_(lo, hi)`, `erfinv_`, `mul_`, `add_`, `clamp_`, as
+    torch's `trunc_normal_` did up to its rejection form), each step's
+    digest.  "float64", the draw since: `gan.init_train_state` on the CPU.
+    Each form's digest and whether it equals `gen`'s fc1 weight; and
+    torch's own `trunc_normal_` on float32 after the float32 convs, with
+    whether its source is the inverse-CDF form."""
+    want = gen.fc1.weight.detach().to("cpu", torch.float32)
+    shape, fan_in = gen.fc1.weight.shape, gen.fc1.in_features
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    a, b = -2.0 * std, 2.0 * std
+    out = {"trunc_normal_source_uses_erfinv":
+           "erfinv_" in inspect.getsource(
+               torch.nn.init._no_grad_trunc_normal_)}
+
+    def cdf(x):
+        return (1.0 + math.erf(x / math.sqrt(2.0))) / 2.0
+
+    def convs():
+        rng = torch.Generator().manual_seed(cfg.train.seed)
+        for block, gain in zip(gen.convolutions, gen._gains):
+            w = torch.empty(block[0].conv.weight.shape, dtype=torch.float32)
+            torch.nn.init.xavier_uniform_(w, gain=gain, generator=rng)
+        return rng
+
+    rng = convs()
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, std=std, a=a, b=b, generator=rng)
+    out["torch_trunc_normal_"] = {"digest": bytes_digest(t),
+                                  "equals_state": torch.equal(t, want)}
+    rng, steps = convs(), []
+    t = torch.empty(shape, dtype=torch.float32)
+    for name, op in (
+            ("uniform_", lambda: t.uniform_(2 * cdf(a / std) - 1,
+                                            2 * cdf(b / std) - 1,
+                                            generator=rng)),
+            ("erfinv_", t.erfinv_),
+            ("mul_", lambda: t.mul_(std * math.sqrt(2.0))),
+            ("add_", lambda: t.add_(0.0)),
+            ("clamp_", lambda: t.clamp_(min=a, max=b))):
+        op()
+        steps.append((name, bytes_digest(t)))
+    out["float32"] = {"steps": steps, "equals_state": torch.equal(t, want)}
+    t = gan.init_train_state(cfg, cfg.train.seed, "cpu").gen.fc1.weight
+    out["float64"] = {"digest": bytes_digest(t.detach()),
+                      "equals_state": torch.equal(t, want)}
+    return out
+
+
 # argv: the bytes to leave free, and "hold" or "busy"; prints "held" once
 # it holds its memory, then holds it (or multiplies matrices) until killed
 HUNT_BALLAST = """
@@ -4728,6 +4997,37 @@ def tensor_diffs(a: dict, b: dict) -> list:
     return out
 
 
+def element_pattern(old: torch.Tensor, new: torch.Tensor) -> dict:
+    """Of two host tensors of one shape, where the differing elements lie:
+    how many in each half of the flat tensor (one contiguous half: a split
+    of an op in two), by the sign of the old value, the range of |old|
+    over them and over the rest (a branch of a formula), and the rows
+    (dim 0) and columns (dim 1) they touch."""
+    x, y = old.double(), new.double()
+    bad = (old.view(torch.uint8).reshape(*old.shape, -1)
+           != new.view(torch.uint8).reshape(*new.shape, -1)).any(-1)
+    flat, n = bad.reshape(-1), bad.numel()
+    k = int(flat.sum())
+    first, second = int(flat[:n // 2].sum()), int(flat[n // 2:].sum())
+    ax = x.abs().reshape(-1)
+
+    def span(mask):
+        v = ax[mask]
+        return [float(v.min()), float(v.max())] if v.numel() else []
+    out = {"halves": [first, second],
+           "contiguous_half": k == n // 2 and (first == k or second == k),
+           "positive": int((x.reshape(-1)[flat] > 0).sum()),
+           "negative": int((x.reshape(-1)[flat] < 0).sum()),
+           "abs_range_changed": span(flat),
+           "abs_range_unchanged": span(~flat),
+           "max_abs_diff": float((x - y).abs().max())}
+    if bad.dim() >= 2:
+        out["rows"] = int(bad.reshape(bad.shape[0], -1).any(1).sum())
+        out["cols"] = int(bad.reshape(bad.shape[0], bad.shape[1], -1)
+                          .any(2).any(0).sum())
+    return out
+
+
 def hunt_diff(a: str, b: str) -> dict:
     """Run b against run a: the enhanced wavs byte for byte, each replay
     file's scores by metric, log.txt, history and the state (the names of
@@ -4741,13 +5041,15 @@ def hunt_diff(a: str, b: str) -> dict:
               or Path(wa[k]).read_bytes() != Path(wb[k]).read_bytes()]
     (sa, ka, _, ra, xa), (sb, kb, _, rb, xb) = map(cli_checkpoint, (a, b))
     fa, fb = _flat_tensors(sa), _flat_tensors(sb)
-    ia, ib = ({f"{m}.{k}": v for m in x for k, v in x[m].items()}
-              for x in (torch.load(f"{r}/init.pt", weights_only=True)
-                        for r in (a, b)))
-    init = tensor_diffs(ia, ib)
-    # which elements of an initial tensor differ: a half, a run, or all
-    where = {k: changed_elements(ia[k].reshape(-1), ib[k].reshape(-1))
-             for k, *_ in init[:2]}
+    init, where = init_diffs(a, b)
+    # the first step of each form of fc1's re-draw whose digest differs
+    redo_a, redo_b = (json.loads(Path(r, "record.json").read_text())
+                      ["redraw_fc1"] for r in (a, b))
+    redraw = {"float32": next((s[0] for s, t in zip(
+        redo_a["float32"]["steps"], redo_b["float32"]["steps"]) if s != t),
+        None)}
+    for form in ("float64", "torch_trunc_normal_"):
+        redraw[form] = redo_a[form] != redo_b[form]
     scores = []
     for ea, eb in zip(json.loads(ra), json.loads(rb)):
         for m, x, y in zip(SCORE_NAMES, ea["scores"], eb["scores"]):
@@ -4760,6 +5062,7 @@ def hunt_diff(a: str, b: str) -> dict:
             and xa["history"] == xb["history"]
             and torch.equal(ka.get_state(), kb.get_state()),
             "init_differs": init[:6], "init_elements": where,
+            "redraw_first_step_differs": redraw,
             "wavs": len(wa),
             "wavs_differ": len(differ), "first_wavs": differ[:4],
             "scores_differ": len(scores), "first_scores": scores[:4],
@@ -4843,7 +5146,7 @@ def fault_hunt(rounds: int, seconds: float = None) -> dict:
                 "form": "dp against plain", "diff": d,
                 "seconds": time.perf_counter() - t_round}
             print(f"fault hunt: side{i} dp against plain: {d}", flush=True)
-    forms = collections.defaultdict(lambda: [0, 0, 0, 0])
+    forms = collections.defaultdict(lambda: [0, 0, 0, 0, 0])
     for r in res["runs"].values():
         d = r.get("vs_alone0", r.get("diff"))
         c = forms[r["form"]]
@@ -4851,11 +5154,51 @@ def fault_hunt(rounds: int, seconds: float = None) -> dict:
         c[1] += d is not None and not d["equal"]
         c[2] += d is None and r.get("code", 0) != 0
         c[3] += bool((r.get("generator_guard") or {}).get("violations"))
+        c[4] += d is not None and bool(d["init_differs"])
     res["counts"] = {k: dict(zip(("runs", "differ", "failed",
-                                  "generator_changed"), v))
+                                  "generator_changed", "init_differs"), v))
                      for k, v in forms.items()}
     res["seconds"] = time.perf_counter() - t_hunt
     return res
+
+
+def dp_control(dev, corpus: str, run: str, single: dict) -> tuple:
+    """The dp check's round-off control: a single-process Trainer on the
+    card as the trainer phase's single run (deterministic cuDNN), from
+    its initial state one float32 ulp up, its D on the single run's
+    scores, DP_EPOCHS epochs; (the trainer, its seconds)."""
+    t0 = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    deterministic, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        ctrl = SmokeTrainer(trainer_paths(corpus, run), trained_config(),
+                            metric_set=SCORE_METRICS, device=dev,
+                            targets=single["scored"])
+        one_ulp_up(ctrl)
+        ctrl.run(DP_EPOCHS)
+    finally:
+        cudnn.deterministic = deterministic
+    return ctrl, time.perf_counter() - t0
+
+
+def rescore_cpu_f64(trainer: Trainer, scored: dict, root: str) -> dict:
+    """The CPU's float64 scores of the files behind `scored`'s keys (a
+    run's `SmokeTrainer.scored` keys: each path with the run's directory
+    `root` cut to "/", calibrated), through `trainer`'s indexes of the
+    same corpus: calibrated files are training files, the others test
+    files (`Trainer.validate`)."""
+    out = {}
+    for norm, index in ((True, trainer.train_index),
+                        (False, trainer.test_index)):
+        keys = [k for k in scored if k[1] == norm]
+        if not keys:
+            continue
+        paths = [root + k[0][1:] if k[0].startswith("/output/") else k[0]
+                 for k in keys]
+        names = sorted(set().union(*(scored[k] for k in keys)))
+        out.update(zip(keys, cpu_f64_scores(index, paths, norm, names,
+                                            trainer.cfg.train.fs)))
+    return out
 
 
 def parallel_phase(dev, tmp: str, single: dict) -> dict:
@@ -4868,7 +5211,9 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
     phase's straight single-process run of the same epochs (`single`):
     the ranks' states bit-equal after every epoch (their digests), the
     names, replay paths and epoch-1 enhanced PCM16 within 1 LSB, the
-    scores within SCORE_BARS, G's epoch loss within F32_LOSS_BAR, the D
+    scores within SCORE_BARS of the CPU's float64 scores of the same files
+    and within cross_run_bars of the single run's (the control: a single
+    run one ulp away, `dp_control`), G's epoch loss within F32_LOSS_BAR, the D
     heads' epoch losses and the state within F32_UPDATE_BAR, epoch 2's
     pool misses at most the single run's, one all-reduce per optimizer
     step, IMCRA and linrec once per featurized shard and PESQ chunk on
@@ -4955,11 +5300,19 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
         raise AssertionError("dp: names or replay paths differ from the "
                              "single run")
     # the dp run's own scores of every file both runs scored (its D and
-    # history took the single run's, as the card-vs-CPU check does)
-    scores = {m: max(abs(r0["scored"][k][m] - v[m]) / max(abs(v[m]), 1.0)
-                     for k, v in single["scored"].items()
-                     if k in r0["scored"])
-              for m in SCORE_METRICS}
+    # history took the single run's, as the card-vs-CPU check does):
+    # against the CPU's float64 scores of the same files (SCORE_BARS), and
+    # against the single run's scores of its own files (cross_run_bars of
+    # a single run on the card one ulp away, the control)
+    both = {k: v for k, v in r0["scored"].items() if k in single["scored"]}
+    ctrl, ctrl_s = dp_control(dev, corpus, f"{tmp}/dp_ulp", single)
+    scores = score_gap(r0["scored"], single["scored"], SCORE_METRICS)
+    control = score_gap(ctrl.scored, single["scored"], SCORE_METRICS)
+    cross_bars = cross_run_bars(control)
+    t0 = time.perf_counter()
+    same_file = score_gap(both, rescore_cpu_f64(ctrl, both, f"{tmp}/dp/"),
+                          SCORE_METRICS)
+    rescore_s = time.perf_counter() - t0
     lsb, files, differ = 0, 0, 0
     for f in sorted(glob.glob(f"{tmp}/dp/output/**/*@1.wav",
                               recursive=True)):
@@ -4978,7 +5331,10 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
         return abs(a - b) / abs(b) if b else abs(a)
     vs_single = {
         "files_epoch1": files, "pcm16_lsb": lsb, "samples_off": differ,
-        "scores": scores,
+        "scores": scores, "scores_vs_cpu_f64_same_files": same_file,
+        "files_rescored": len(both), "one_ulp_control": control,
+        "cross_run_bars": cross_bars,
+        "seconds": {"control": ctrl_s, "rescore": rescore_s},
         "g_loss_rel": rel(ep[2]["g_loss"], sp[2]["g_loss"]),
         "d_epoch_loss_rel": max(rel(ep[e]["d_loss"][k], sp[e]["d_loss"][k])
                                 for e in (1, 2) for k in (0, 1)),
@@ -4990,11 +5346,13 @@ def parallel_phase(dev, tmp: str, single: dict) -> dict:
         misses[pool] = {"dp": d1, "single": s1}
     vs_single["epoch2_misses"] = misses
     print(f"dp, {DP_WORLD} gloo ranks on one card, against the single run "
-          f"(epochs 1-{DP_EPOCHS}): {vs_single}; bars {SCORE_BARS}, "
+          f"(epochs 1-{DP_EPOCHS}): {vs_single}; bars {SCORE_BARS} "
+          f"(scores_vs_cpu_f64_same_files), cross_run_bars (scores), "
           f"F32_LOSS_BAR {F32_LOSS_BAR} (G), F32_UPDATE_BAR "
           f"{F32_UPDATE_BAR} (D losses, state)")
     if not (files > 0 and lsb <= 1
-            and all(scores[m] < SCORE_BARS[m] for m in scores)
+            and all(same_file[m] < SCORE_BARS[m] for m in same_file)
+            and all(scores[m] <= cross_bars[m] for m in cross_bars)
             and vs_single["g_loss_rel"] <= F32_LOSS_BAR
             and vs_single["d_epoch_loss_rel"] <= F32_UPDATE_BAR
             and vs_single["state"]["update_rel"] <= F32_UPDATE_BAR

@@ -29,11 +29,14 @@ gathers each block's and each dense layer's channels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from nelegan_tpu_torch.config import policy_dtype
+from nelegan_tpu_torch.models import draw
 from nelegan_tpu_torch.parallel.tensor import (gather_from_model,
                                                reduce_in_model, to_model)
 
@@ -160,27 +163,25 @@ class Generator(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
-        """The reference package's init, drawn on the CPU from `generator`:
+        """The reference package's init, drawn on the CPU in float64 from
+        `generator` and rounded once to the parameters' dtype
+        (`models/draw.py`):
         xavier-uniform conv weights with the block's gain, lecun-normal
         (truncated at two deviations) dense weights, zero biases, unit cLN
         gains (`nelegan_tpu/models/generator.py:68-78`; flax's defaults)."""
-        def draw(p, fill):
-            cpu = torch.empty(p.shape, dtype=torch.float32, device="cpu")
-            fill(cpu)
-            p.copy_(cpu)
-
         for block, gain in zip(self.convolutions, self._gains):
-            conv = block[0].conv
-            draw(conv.weight, lambda w: nn.init.xavier_uniform_(
-                w, gain=gain, generator=generator))
-            conv.bias.zero_()
+            w = block[0].conv.weight
+            out_ch, in_ch, k = w.shape
+            bound = gain * math.sqrt(6.0 / ((in_ch + out_ch) * k))
+            w.copy_(draw.uniform(w.shape, -bound, bound, generator))
+            block[0].conv.bias.zero_()
             block[2].gain0.fill_(1.0)
             block[2].bias0.zero_()
         for fc in (self.fc1, self.fc2):
             # flax's truncated normal keeps unit variance after truncation
             std = (1.0 / fc.in_features) ** 0.5 / 0.87962566103423978
-            draw(fc.weight, lambda w: nn.init.trunc_normal_(
-                w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator))
+            fc.weight.copy_(draw.truncated_normal(fc.weight.shape, std,
+                                                  generator))
             fc.bias.zero_()
 
     def forward(self, clean: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:

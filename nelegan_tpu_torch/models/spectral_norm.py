@@ -47,6 +47,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nelegan_tpu_torch.models import draw
 from nelegan_tpu_torch.parallel.tensor import gather_from_model, to_model
 
 _EPS = 1e-12
@@ -77,19 +78,23 @@ class _SpectralNorm(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         """he-uniform weight, zero bias, u a normal draw normalised, and
-        v = l2norm(W^T u).  Draws come from `generator` (the global one when
-        None) on the CPU, so a seed gives the same layer on every device."""
+        v = l2norm(W^T u): drawn and computed on the CPU in float64 from
+        `generator` (the global one when None), each rounded once to the
+        parameters' dtype (`models/draw.py`), so a seed gives the same
+        layer on every device and CPU."""
         w = self.weight_orig
         fan_in = math.prod(w.shape[1:])
         limit = math.sqrt(6.0 / fan_in)
-        cpu = torch.empty(w.shape, dtype=torch.float32, device="cpu")
-        cpu.uniform_(-limit, limit, generator=generator)
-        w.copy_(cpu)
+        w64 = draw.uniform(w.shape, -limit, limit, generator)
+        u64 = draw.l2norm(torch.empty(w.shape[0], dtype=torch.float64)
+                          .normal_(generator=generator))
+        # W^T u as products summed in a fixed order, not a BLAS GEMV
+        v64 = draw.l2norm(draw.pairwise_sum(
+            w64.reshape(w.shape[0], -1) * u64[:, None]))
+        w.copy_(w64)
         self.bias.zero_()
-        u = torch.empty(w.shape[0], dtype=torch.float32, device="cpu")
-        u.normal_(generator=generator)
-        self.weight_u.copy_(_l2norm(u))
-        self.weight_v.copy_(_l2norm(self._wmat().t() @ self.weight_u))
+        self.weight_u.copy_(u64)
+        self.weight_v.copy_(v64)
 
     def _wmat(self) -> torch.Tensor:
         return self.weight_orig.reshape(self.weight_orig.shape[0], -1)

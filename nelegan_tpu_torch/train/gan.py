@@ -117,8 +117,9 @@ def init_train_state(cfg: Config = Config(), seed: int = 0, device=None,
                      gen_state: dict | None = None,
                      dtype: torch.dtype = torch.float32) -> TrainState:
     """A fresh state on `device` (None: CUDA) in `dtype`: weights drawn on
-    the CPU from a `torch.Generator` seeded with `seed` (the same models on
-    every device), then G, D and D_Qua in that order; `gen_state`, a
+    the CPU in float64 on one thread from a `torch.Generator` seeded with
+    `seed` (`models/draw.py`: the same bits on every host and device), then
+    G, D and D_Qua in that order; `gen_state`, a
     generator state dict, replaces G's draw."""
     dev = resolve_device(device)
     rng = torch.Generator().manual_seed(seed)
@@ -129,8 +130,14 @@ def init_train_state(cfg: Config = Config(), seed: int = 0, device=None,
         gen = Generator.from_config(cfg.model)
         d = IntelDiscriminator.from_config(cfg.model)
         dq = QualityDiscriminator.from_config(cfg.model)
-    for m in (gen, d, dq):
-        m.reset_parameters(rng)
+    # one thread: no parallel region in the draw, whatever ATen splits
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for m in (gen, d, dq):
+            m.reset_parameters(rng)
+    finally:
+        torch.set_num_threads(threads)
     if gen_state is not None:
         gen.load_state_dict(gen_state, strict=True)
     gen, d, dq = (m.to(device=dev, dtype=dtype) for m in (gen, d, dq))
